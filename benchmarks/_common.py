@@ -1,15 +1,11 @@
-"""Shared benchmark plumbing.
-
-One definition of the persistent-compile-cache setup (the cache removes
-compile-autotuning variance between recorded runs — BASELINE.md
-methodology); harnesses keep their own workload generators where the
-ensembles intentionally differ (seeds / shape grids are part of each
-recorded row's identity).
+"""Shared benchmark plumbing: the compressed-sensing ensemble. Harnesses
+keep their own workload generators where the ensembles intentionally
+differ (seeds / shape grids are part of each recorded row's identity);
+the persistent compile cache is sparse_solvers_tpu.utils.config.
+use_compile_cache.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 
@@ -34,13 +30,3 @@ def make_sparse_problem(m, n, k, batch, seed=0, signed=False,
         X[b, sup] = a
     return A, X, (X @ A.T).astype(np.float32)
 
-
-def setup_cache():
-    """Point JAX at the repo's persistent compilation cache."""
-    import jax
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(repo, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

@@ -66,8 +66,8 @@ def emit(**kw):
 
 
 def _setup_cache():
-    from _common import setup_cache
-    setup_cache()
+    from sparse_solvers_tpu.utils.config import use_compile_cache
+    use_compile_cache()
 
 
 def main():

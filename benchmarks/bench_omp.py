@@ -5,12 +5,12 @@ k column picks = k iterations, each one correlation product plus O(k²)
 slot work over the online Gram inverse. This harness records the
 vmapped jax engine at the headline-adjacent compressed-sensing shape
 in the Gram-gather formulation (gram=True pins it) and whatever the
-batch·k < 2m router picks for gram=False ("dense" — two amortized MXU
+batch·k < 2m router picks for gram=False ("dense" — two amortized
 passes — at both bench shapes; labels come from explain()), with
 exact-support recovery as the correctness gate, plus a threaded
 native-host row for the small-problem floor.
 
-Run (real TPU):  python benchmarks/bench_omp.py [--quick]
+Run (GPU):  python benchmarks/bench_omp.py [--quick]
 CPU plumbing check: add --cpu.
 """
 
@@ -26,7 +26,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from benchmarks._common import make_sparse_problem, setup_cache
+from benchmarks._common import make_sparse_problem
+from sparse_solvers_tpu.utils.config import use_compile_cache
 
 
 def emit(**kw):
@@ -48,7 +49,7 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     else:
-        setup_cache()
+        use_compile_cache()
     import jax.numpy as jnp
     import sparse_solvers_tpu as ss
 
@@ -70,7 +71,7 @@ def main():
 
     Yd = jnp.asarray(Y)
     # row 1-2: the slot-space batch driver (the default route for
-    # batched f32 TPU solves) at one-pass and 3-pass precision;
+    # batched f32 GPU solves) at one-pass and HIGH precision;
     # rows 3-4: the vmapped formulations with the driver forbidden
     # (gram=True pins Gram-gather; gram=False routes "dense" at both
     # bench shapes). Labels report what ran, from explain().
@@ -79,7 +80,7 @@ def main():
              (dict(gram=True), "0"),
              (dict(gram=False), "0")]
     if args.large:
-        # n² is unmaterializable: gram-free driver (one-pass + 3-pass)
+        # n² is unmaterializable: gram-free driver (one-pass + HIGH)
         # vs the vmapped dense-corr fallback
         cases = [(dict(gram=False, precision="default"), "1"),
                  (dict(gram=False, precision="high"), "1"),
@@ -92,8 +93,7 @@ def main():
         solver = ss.Omp(A, engine="jax", **kw)
         plan = solver.explain(batch=batch, max_iterations=max_iter)
         driver = plan["corr"] == "driver"
-        # names and keys match the recorded omp_v5e.jsonl schema:
-        # "batch_driver[_gramfree]" + a "precision" field, and the
+        # row names: "batch_driver[_gramfree]" + a "precision" field; the
         # driver's error is the post-loop certificate
         if driver:
             name = ("batch_driver_gramfree" if plan.get("gram_free")

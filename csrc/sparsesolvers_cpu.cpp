@@ -217,7 +217,7 @@ T sign_deadzone(T v, T tol) {
 //
 // Maintains B = (A_G^T A_G)^-1 for the active columns G in *insertion*
 // order inside a fixed (cap x cap) row-major buffer, exactly the update
-// math of the TPU path (linalg/online_inverse.py insert_unordered /
+// math of the jax path (linalg/online_inverse.py insert_unordered /
 // remove_unordered; reference math: online_inverse.h:184-293).
 
 template <typename T>
@@ -247,7 +247,7 @@ struct OnlineInverse {
   // even negative dens proceed exactly as the reference's arithmetic
   // does — coherent dictionaries produce noise-level dens whose paths
   // still converge via the per-iteration sign recomputation. Same rule
-  // as the JAX engines (solvers/homotopy.py, ops/pallas/transition.py);
+  // as the JAX engines (solvers/homotopy.py, ops/slot.py);
   // run_solver additionally breaks on a non-finite direction.
   bool insert(int col, const T* u1_in, T vtv) {
     for (int i = 0; i < k; ++i) u1[i] = u1_in[i];

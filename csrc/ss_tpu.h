@@ -350,7 +350,7 @@ class irls {
 };
 
 // Orthogonal Matching Pursuit — greedy pursuit companion to homotopy
-// (this framework's extension; solvers/omp.py is the TPU twin).
+// (this framework's extension; solvers/omp.py is the jax twin).
 // solution_error is the final residual norm ‖y − Ax‖₂.
 template <typename T>
 class omp {

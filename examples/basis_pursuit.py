@@ -6,7 +6,7 @@ no solver for this shape — its IRLS rejects m < n (irls_test.cpp:53) and
 its homotopy serves the same objective along a different algorithmic
 path. CG-IRLS (solvers/irls_cg.py, arXiv:1509.04063) is factorization-
 free: construction does no device work, and each inner conjugate-
-gradient step is two MXU gemvs, so the solver runs at sensing-matrix
+gradient step is two gemvs, so the solver runs at sensing-matrix
 sizes where a QR or Gram matrix could never be materialized.
 
 Run: python examples/basis_pursuit.py [m] [n] [k] [batch]

@@ -3,7 +3,7 @@
 One sensing matrix (the "dictionary": columns are known patterns /
 training faces), many observed signals to classify by sparse coding —
 the motivating workload of the reference library (needle-in-haystack
-pattern search) scaled to TPU batch throughput.
+pattern search) scaled to device batch throughput.
 
 Run: python examples/batch_recovery.py [m] [n] [k] [batch]
 """

@@ -4,12 +4,12 @@ How a production recovery service drives the solver at full device
 throughput: construct once, then feed batches through the
 jit-composable `solve_batch_on_device` entry (device arrays in and out,
 no host sync per call) with `precision="certified"` — the path runs at
-one-pass bf16 MXU speed and every lane carries a high-precision
+one-pass speed and every lane carries a parity-grade
 convergence certificate; the loop inspects the certificates *after*
 fencing and re-solves any failing batch at parity precision.
 
 `explain()` shows the execution plan (engine, formulation, capacity
-tiers, fused kernels) before anything compiles.
+tiers, bf16 q product) before anything compiles.
 
 Run: python examples/serving_loop.py      (SS_EXAMPLE_CPU=1 for CPU)
 """

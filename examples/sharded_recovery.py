@@ -1,13 +1,13 @@
 """Multi-device sparse recovery — row-sharded sensing matrix over a mesh.
 
-Scales the homotopy solver past one chip by partitioning the sensing
+Scales the homotopy solver past one device by partitioning the sensing
 matrix's rows over the "row" mesh axis and the signal batch over the
 "data" axis; each device computes partial correlations, combined by one
-psum over ICI per product (docs/design.md §4, parallel/sharding.py).
+psum per product (docs/design.md §4, parallel/sharding.py).
 
-Runs anywhere: with no TPU pod attached, it re-executes itself with an
-8-device virtual CPU mesh (fewer than 2 real devices → demo mode); on a
-real slice it uses the actual devices. Set SS_SHARDED_DEMO_CPU=1 to
+Runs anywhere: with fewer than 2 accelerator devices it re-executes
+itself with an 8-device virtual CPU mesh (demo mode); on a multi-GPU
+host it uses the actual devices. Set SS_SHARDED_DEMO_CPU=1 to
 force the CPU mesh without probing the accelerator at all.
 """
 
@@ -72,10 +72,10 @@ def main():
           f"mean path length {np.asarray(reports.iter).mean():.1f}; "
           f"support recovery {100*support_hit:.0f}%")
 
-    # the same solve through the slot-space Pallas throughput driver
-    # (auto-selected on real TPU meshes; forced here so the demo also
-    # exercises it on the CPU mesh, in interpret mode), gram-free as the
-    # very-large-n regime would run it
+    # the same solve through the slot-space throughput driver
+    # (auto-selected on GPU meshes; forced here so the demo also
+    # exercises it on the CPU mesh), gram-free as the very-large-n
+    # regime would run it
     Xb, repb = sh.homotopy_sharded(mesh, Ad, Yd, tolerance=1e-2,
                                    max_iterations=4 * k,
                                    batch_native=True, gram=False)

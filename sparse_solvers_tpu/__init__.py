@@ -1,10 +1,10 @@
-"""sparse-solvers-tpu — TPU-native ℓ₁-minimization solvers.
+"""sparse-solvers-tpu — batched ℓ₁-minimization and greedy sparse recovery.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA library, run on NVIDIA GPUs, with the capabilities of the reference
 C++ library rayglover-ibm/sparse-solvers: Homotopy (path-following with an
 incrementally maintained active-set Gram inverse) and IRLS (iteratively
 reweighted least squares over a cached QR) solvers for
-``min ‖x‖₁ s.t. Ax = y``, batched with vmap and scalable across TPU meshes
+``min ‖x‖₁ s.t. Ax = y``, batched with vmap and scalable across device meshes
 by row-sharding the sensing matrix.
 
 Public surface mirrors the reference Python package ``sparsesolvers``

@@ -348,7 +348,7 @@ def homotopy_solve(A: np.ndarray, y: np.ndarray, tol: float,
                    max_iterations: int, k_max: int):
     """Single homotopy solve on the host. Returns (x, iter, solution_error).
 
-    Same algorithm and semantics as the TPU fast path (insertion-ordered
+    Same algorithm and semantics as the jax fast path (insertion-ordered
     active set, correlation recurrence); float32 or float64 by A's dtype.
     """
     lib = get_lib()

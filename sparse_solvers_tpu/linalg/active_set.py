@@ -1,4 +1,4 @@
-"""Fixed-capacity sorted active set — the TPU analog of ``rank_index``.
+"""Fixed-capacity sorted active set — the fixed-shape analog of ``rank_index``.
 
 The reference maintains the homotopy active set Γ in a sorted ``std::vector``
 order-statistic structure (reference: src/linalg/rank_index.h:26-98) whose

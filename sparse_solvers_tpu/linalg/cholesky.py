@@ -6,7 +6,7 @@ src/linalg/cholesky_decomposition.h:28-113, pivot check at :80-83), which the
 IRLS solver uses to degrade gracefully with ``spd_failure``
 (src/solvers/irls-cpu.cpp:50-51,95-97).
 
-On TPU the factorization itself is XLA's blocked ``cholesky`` lowering (the
+On the device the factorization itself is XLA's blocked ``cholesky`` lowering (the
 fast path); SPD detection reproduces the reference's pivot criterion: the
 factorization is declared non-SPD when any pivot √a_jj ≤ machine eps. A
 pivot that goes *negative* yields NaNs from XLA's cholesky; we flag that as

@@ -3,7 +3,7 @@
 The reference maintains the inverse of the active-set Gram matrix as columns
 enter/leave Γ by growing/shrinking a heap buffer with row/column rotations
 (reference: src/linalg/online_inverse.h:35-301, math in
-docs/algorithms/online-matrix-inverse/src.tex). On TPU the buffer is a fixed
+docs/algorithms/online-matrix-inverse/src.tex). On the device the buffer is a fixed
 ``(capacity, capacity)`` array: the live k×k inverse occupies the top-left
 block in *rank order* (ranks = positions in the ascending active-index
 vector), everything outside is zero, and the reference's ``square_permute``
@@ -113,9 +113,10 @@ def insert(state: InverseState, col: jnp.ndarray, u1_full: jnp.ndarray,
 
 def _swap_rowcol(M: jnp.ndarray, i, j) -> jnp.ndarray:
     """Exchange rows i,j and columns i,j of a square matrix using dynamic
-    slices + broadcast selects — no gather. On TPU a (k×k) double-gather
-    permutation costs ~an order of magnitude more than these selects, which
-    is why the unordered fast path swaps instead of rotating."""
+    slices + broadcast selects — no gather. A (k×k) double-gather
+    permutation measured about an order of magnitude slower than these
+    selects on the previous accelerator, which is why the unordered fast
+    path swaps instead of rotating."""
     cap = M.shape[0]
     idx = jnp.arange(cap)
     is_i = (idx == i)[:, None]

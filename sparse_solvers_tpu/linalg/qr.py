@@ -1,6 +1,6 @@
 """Householder QR factorization (economy), jittable with static shapes.
 
-TPU-native re-design of the reference's hand-rolled LINPACK-style QR
+Fixed-shape re-design of the reference's hand-rolled LINPACK-style QR
 (reference: src/linalg/qr_decomposition.h:32-227): the column loop becomes a
 ``lax.fori_loop`` whose body applies each reflector with masked full-width
 vector ops (no data-dependent shapes), so the whole factorization compiles to

@@ -1,2 +1,3 @@
-"""Dense primitives and backend dispatch (TPU analog of the BLAS layer)."""
-from . import blas, dispatch  # noqa: F401
+"""Dense primitives (the accelerator analog of the BLAS layer) and the
+slot-space batch primitives of the throughput drivers."""
+from . import blas, slot  # noqa: F401

@@ -1,12 +1,13 @@
-"""Precision-pinned dense primitives — the TPU analog of the BLAS wrapper.
+"""Precision-pinned dense primitives — the accelerator analog of the BLAS
+wrapper.
 
 The reference routes every dense operation through typed span overloads of a
-runtime-loaded OpenBLAS (reference: src/linalg/blas_wrapper.h:99-400). On TPU
-the operations themselves are XLA/MXU ops; what this layer pins down is the
-*numerics*: every contraction runs with ``precision=HIGHEST`` and an explicit
-``preferred_element_type`` so float32 results on the MXU match the reference's
-float32 CPU BLAS within its test tolerances (reference test regime:
-src/solvers/test_util.h — 1e-3..1e-4 absolute).
+runtime-loaded OpenBLAS (reference: src/linalg/blas_wrapper.h:99-400). Here
+the operations themselves are XLA ops; what this layer pins down is the
+*numerics*: every contraction runs with ``precision=HIGHEST`` by default and
+an explicit ``preferred_element_type`` so float32 results on the device match
+the reference's float32 CPU BLAS within its test tolerances (reference test
+regime: src/solvers/test_util.h — 1e-3..1e-4 absolute).
 
 Naming follows the reference wrapper (xgemv/xgemm/xger/xdot/xnrm2/xscal/
 ixamax/xtrsv/xtrsm) so the parity mapping is one-to-one.
@@ -21,14 +22,22 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# Active contraction precision for every blas-layer matmul. f32 matmuls on
-# the TPU MXU decompose into bf16 passes: HIGHEST = 6 passes (bit-faithful
-# f32), HIGH = 3 passes (~1e-7 relative), DEFAULT = 1 pass (bf16 inputs).
-# The default here is HIGHEST — reference-parity numerics; solvers lower it
-# per-trace through precision_scope. The stack is thread-local: two solver
-# instances tracing concurrently from different threads must not capture
-# each other's precision (round-1 advisor finding).
+# Active contraction precision for every blas-layer matmul. On the GPU a
+# float32 matmul at DEFAULT or HIGH runs on the tensor cores in TF32 (a
+# 10-bit mantissa, ~1e-3 relative); only HIGHEST is full FP32. The
+# slot-space drivers' one-pass route is explicitly bf16 instead: a bf16
+# copy of A with float32 accumulation (ops/slot.normal_matvec_bf16). On
+# the CPU every precision computes full float32. The default here is
+# HIGHEST — reference-parity numerics; solvers lower it per-trace through
+# precision_scope. The stack is thread-local: two solver instances tracing
+# concurrently from different threads must not capture each other's
+# precision.
 _TLS = threading.local()
+
+# Parity-grade precision: what the certificates of precision="certified"
+# and its re-solves run at. HIGH would be TF32 on the GPU, no better than
+# the path it certifies.
+PARITY = "highest"
 
 
 def _stack():
@@ -54,7 +63,7 @@ def precision_scope(precision):
 
     ``precision`` is "highest" | "high" | "default" or a lax.Precision.
     Trace-time scoped (use *inside* the jitted function so retraces pick it
-    up) — the TPU analog of the reference's runtime BLAS selection
+    up) — the analog of the reference's runtime BLAS selection
     (blas_wrapper.cpp:39-49), except the choice is precision, not µarch.
     """
     if isinstance(precision, str):

@@ -10,9 +10,9 @@ stack: SURVEY.md §3.2 / src/solvers/homotopy-cpu.cpp):
 Abstracting these lets the identical while_loop run over
   * a dense single-device matrix (DenseOperator), or
   * a row-shard of A inside ``shard_map``, where every n-sized product ends
-    with a ``psum`` over the row axis (RowShardedOperator) — the TPU-native
+    with a ``psum`` over the row axis (RowShardedOperator) — the mesh
     replacement for the reference's single-address-space BLAS calls
-    (SURVEY.md §2.4: partial correlations per shard + ICI allreduce).
+    (SURVEY.md §2.4: partial correlations per shard + one allreduce).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class DenseOperator(NamedTuple):
     ``G`` optionally carries the precomputed Gram matrix AᵀA (n×n). The
     reference recomputes Gram *columns* with gemvs every active-set insert
     (homotopy-cpu.cpp:180-181 → online_inverse insert) because memory was
-    the constraint on CPU; on TPU, HBM is large and bandwidth is the
+    the constraint on CPU; on the device, memory is large and bandwidth is the
     constraint, so paying 2mn² FLOPs once at construction turns every
     insert (and, in the sparse-q fast path, the whole γ-scan product
     q = AᵀA d) into an O(n·k) gather instead of an O(mn) pass over A.
@@ -91,7 +91,7 @@ class DenseOperator(NamedTuple):
         """(u1, vtv) with u1[i] = (AᵀA)[slots[i], col] (sentinel slots → 0)
         and vtv = (AᵀA)[col, col]. With a precomputed Gram this is one
         contiguous row lookup (G is symmetric: G[:, col] = G[col, :]) plus
-        a k_max-element gather from that row — on TPU far cheaper than a
+        a k_max-element gather from that row — far cheaper than a
         2-d point gather into the full n×n table. Without G: one
         Gram-column product followed by the same gather."""
         if self.G is not None:
@@ -140,7 +140,7 @@ class RowShardedOperator(NamedTuple):
 
     The m-dimension quantities (p = A d, residual r) stay sharded — they are
     only ever consumed by a following rmatvec — so exactly one collective
-    (the psum of the n-sized correlation) rides ICI per product, as in the
+    (the psum of the n-sized correlation) crosses devices per product, as in the
     SURVEY §2.4 target design.
     """
     A_local: jnp.ndarray
@@ -202,7 +202,7 @@ class RowShardedOperator(NamedTuple):
             return lax.psum(blas.xgemv(self.A_local, u_local, trans=True),
                             self.axis)
         # pipelined variant: one psum per column block, so the collective
-        # for block i can ride ICI while block i+1's gemv runs
+        # for block i can run while block i+1's gemv runs
         n = self.A_local.shape[1]
         step = -(-n // self.split)
         parts = [

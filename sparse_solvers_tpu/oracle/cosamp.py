@@ -1,6 +1,6 @@
 """NumPy oracle for CoSaMP (Needell–Tropp 2009).
 
-Independent of the TPU implementation by design (like oracle/omp.py):
+Independent of the jax implementation by design (like oracle/omp.py):
 the union LS uses a dense ``np.linalg.lstsq`` over the gathered
 candidate columns, so a Gram/Cholesky bug in solvers/cosamp.py cannot
 hide. Mirrors the engine's fixed-shape union variant exactly: the 2k

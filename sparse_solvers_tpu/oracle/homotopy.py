@@ -1,7 +1,7 @@
 """NumPy oracle for the homotopy solver.
 
 Plays the role of the reference's pure-NumPy oracle
-(reference: bindings/python/reference/homotopy.py) for the TPU library: a
+(reference: bindings/python/reference/homotopy.py) for this library: a
 simple, obviously-correct implementation used by the test suite to
 cross-check the jitted solver. It follows the same algorithm as the C++
 solver (reference: src/solvers/homotopy-cpu.cpp:186-275) — including the

@@ -2,7 +2,7 @@
 
 Role analog of reference bindings/python/reference/irls.py, written to match
 the C++ solver's exact semantics (reference: src/solvers/irls-cpu.cpp:39-124)
-so the jitted TPU solver can be cross-checked against it: raw-value (not
+so the jitted solver can be cross-checked against it: raw-value (not
 absolute) second-largest selection, threshold-then-commit ordering, eps as
 the reported solution error, and the do-while termination rule.
 """

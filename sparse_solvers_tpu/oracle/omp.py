@@ -1,6 +1,6 @@
 """NumPy oracle for Orthogonal Matching Pursuit.
 
-Independent of the TPU implementation by design (like oracle/homotopy.py):
+Independent of the jax implementation by design (like oracle/homotopy.py):
 the LS re-solve uses a dense ``np.linalg.lstsq`` on the gathered columns
 every iteration, so an online-inverse bug in solvers/omp.py cannot hide —
 any trajectory divergence shows up in the support sequence or residuals.

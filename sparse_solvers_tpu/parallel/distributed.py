@@ -2,9 +2,9 @@
 
 The reference is single-process (SURVEY.md §2.4: no communication
 backend; its whole "backend" story is a dlopen'd per-µarch OpenBLAS,
-src/linalg/blas_wrapper.cpp:27-66). The TPU-native equivalent of "pick
-the runtime at startup" is JAX's distributed runtime: every host in a
-pod slice runs the same program, `jax.distributed.initialize()` joins
+src/linalg/blas_wrapper.cpp:27-66). The equivalent of "pick the runtime
+at startup" is JAX's distributed runtime: every host of a cluster runs
+the same program, `jax.distributed.initialize()` joins
 them into one single-controller SPMD job, and `jax.devices()` becomes
 the *global* device list over which `sharding.make_mesh` lays the
 (data, row) mesh (docs/design.md §4, multi-host deployment).
@@ -17,9 +17,10 @@ call::
     mesh = distributed.global_mesh(n_data=...)  # rows within a slice
 
 and keeps the policy documented in docs/design.md in code: the **row**
-axis (one psum per product, every iteration) is laid within a slice so
-the collective rides ICI; the **data** axis (lanes never communicate)
-is what may span slices/DCN.
+axis (one psum per product, every iteration) is laid within a host, so
+its collective stays on the host's device interconnect (NVLink on a
+four-GPU host); the **data** axis (lanes never communicate) is what may
+span hosts.
 """
 
 from __future__ import annotations
@@ -50,23 +51,16 @@ def is_initialized() -> bool:
 
 # Environment variables that mark a managed multi-host launch where
 # jax.distributed.initialize() can autodetect its cluster configuration
-# (an explicit coordinator address). Deliberately conservative:
-# single-host tooling flags (TPU_SKIP_MDS_QUERY, a one-entry
-# TPU_WORKER_HOSTNAMES) must not trigger a coordinator hunt.
+# (an explicit coordinator address). Deliberately conservative: nothing
+# weaker may trigger a coordinator hunt on a single host.
 _CLUSTER_ENV_VARS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
 )
 
 
 def _cluster_detected() -> bool:
     if any(os.environ.get(v) for v in _CLUSTER_ENV_VARS):
-        return True
-    # the Cloud TPU pod runtime lists every worker host; one entry is a
-    # single-host machine, not a pod
-    workers = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    if len([w for w in workers.split(",") if w.strip()]) > 1:
         return True
     try:
         return int(os.environ.get("JAX_NUM_PROCESSES", "1") or "1") > 1
@@ -85,8 +79,8 @@ def initialize(coordinator_address: str | None = None,
     """Join this process to the JAX distributed runtime (idempotent).
 
     With no arguments: initialize only when a cluster environment is
-    detectable (explicit coordinator env vars, or a TPU pod runtime
-    where autodetection works) — on a plain single host this is a no-op
+    detectable (explicit coordinator env vars, or JAX_NUM_PROCESSES > 1)
+    — on a plain single host this is a no-op
     returning False, so programs can call it unconditionally.
 
     With explicit arguments: forwarded to ``jax.distributed.initialize``
@@ -122,8 +116,8 @@ def global_mesh(n_row: int | None = None, n_data: int = 1):
     Defaults follow docs/design.md's placement policy: with
     ``n_data=1`` every device joins the row axis; pass
     ``n_data=jax.process_count()`` (with default n_row) to put the
-    data axis across hosts/slices and keep each row shard's psum on
-    ICI within a host's devices — `jax.devices()` orders devices
+    data axis across hosts and keep each row shard's psum within a
+    host's devices — `jax.devices()` orders devices
     process-major, and `make_mesh` fills the (data, row) grid
     row-major, so each data row is one process's devices.
     """

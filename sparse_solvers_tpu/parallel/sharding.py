@@ -1,9 +1,9 @@
 """Multi-device sharded solves — row-partitioned sensing matrix over a mesh.
 
 The reference is single-process/single-thread (SURVEY.md §2.4); the scaling
-design it maps to on TPU is: shard A's rows (the m axis) across devices, so
-each device computes partial correlations Aᵀ_shard·r_shard, combined with a
-single ``psum`` over ICI per product; the small active-set state (the γ scan,
+design it maps to on an accelerator mesh is: shard A's rows (the m axis)
+across devices, so each device computes partial correlations
+Aᵀ_shard·r_shard, combined with a single ``psum`` per product; the small active-set state (the γ scan,
 the K_max² Gram inverse) is replicated. Batches of signals shard over a
 second ``data`` mesh axis. Everything is expressed with ``shard_map`` over a
 ``jax.sharding.Mesh`` + the RowShardedOperator (ops/operators.py), letting
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
+from ..ops import blas
 from ..ops.operators import RowShardedOperator
 from ..solvers.homotopy import solve_homotopy_core
 from ..solvers.irls import solve_irls_core
@@ -98,7 +99,6 @@ def _homotopy_sharded_fn(mesh: Mesh, path_precision: str, gram: bool,
                         (P(DATA_AXIS), P(DATA_AXIS))),
              check_vma=False)
     def run(A_local, *rest):
-        from ..ops import blas
         if gram_in:
             G_in, Y_local, tol = rest
         else:
@@ -106,12 +106,12 @@ def _homotopy_sharded_fn(mesh: Mesh, path_precision: str, gram: bool,
             Y_local, tol = rest
         n = A_local.shape[1]  # row shards keep every column (global n)
         m_global = A_local.shape[0] * mesh.shape[ROW_AXIS]
+        # a precomputed replicated Gram (the mesh facade's construct-
+        # once amortization) skips the per-call psum'd build, which runs
+        # at HIGHEST like every other Gram (gram_replicated, the
+        # unsharded façades): the path precision is TF32 on the GPU
+        G = G_in if gram_in else (_gram_psum(A_local) if gram else None)
         with blas.precision_scope(path_precision):
-            # a precomputed replicated Gram (the mesh facade's construct-
-            # once amortization) skips the per-call psum'd build
-            G = (G_in if gram_in else
-                 (jax.lax.psum(blas.xgemm(A_local, A_local, trans_a=True),
-                               ROW_AXIS) if gram else None))
             if batch_native:
                 from ..solvers.homotopy_batch import solve_homotopy_batch
                 X, rep = solve_homotopy_batch(
@@ -145,13 +145,13 @@ def _homotopy_sharded_fn(mesh: Mesh, path_precision: str, gram: bool,
         err = rep.solution_error
         if certified:
             # sharded certificate: per-shard partial correlations of the
-            # returned solutions, one psum over the row axis, at "high"
-            # precision (the solver's own convergence criterion).
+            # returned solutions, one psum over the row axis, at
+            # blas.PARITY (the solver's own convergence criterion).
             # Compact output densifies locally for the certificate only
             # (the saving of dense=False is the host transfer).
             from ..solvers.homotopy_batch import densify_batch
             Xd = X if dense else densify_batch(X[0], X[1], n)
-            with blas.precision_scope("high"):
+            with blas.precision_scope(blas.PARITY):
                 r_loc = Y_local - blas.xgemm(Xd, A_local, trans_b=True)
                 c_part = blas.xgemm(r_loc, A_local)
             c = jax.lax.psum(c_part, ROW_AXIS)
@@ -184,21 +184,21 @@ def homotopy_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
     the row axis is actually sharded and n ≥ 512, else 1) splits each
     iteration's q = AᵀA d into that many independent column-block
     products, each ending in its own psum, so XLA's async collectives
-    overlap block j's all-reduce with block j+1's local MXU gemm — the
-    north-star "overlap collective with next matvec tile" applied to
+    overlap block j's all-reduce with block j+1's local gemm — the
+    "overlap collective with next matvec tile" design applied to
     the throughput driver (the vmapped core's analog is
     ``overlap_split``). Exact: identical per-element products and psum
     trees (tests pin both the HLO collective structure and exactness
     vs the unsplit driver). Pass 1 to disable.
 
-    ``precision`` follows the api's MXU settings ("highest"/"high"/
+    ``precision`` follows the api's settings ("highest"/"high"/
     "default"/"certified"). Under "certified" the path runs at one-pass
-    precision and each lane's final ‖Aᵀ(y−Ax)‖∞ is recomputed at "high"
-    precision *inside the shard_map* — per-shard partial correlations
-    combined by one psum over the row axis — and reported as
-    solution_error; lanes whose certificate misses the tolerance
+    precision and each lane's final ‖Aᵀ(y−Ax)‖∞ is recomputed at
+    ``blas.PARITY`` *inside the shard_map* — per-shard partial
+    correlations combined by one psum over the row axis — and reported
+    as solution_error; lanes whose certificate misses the tolerance
     without exhausting max_iterations trigger one full re-solve at
-    "high" (merged per lane), mirroring ``Homotopy.solve_batch``.
+    ``blas.PARITY`` (merged per lane), mirroring ``Homotopy.solve_batch``.
     Like ``solve_batch``, the certified re-solve is a host-side,
     data-dependent decision and cannot live under an outer ``jax.jit``
     — call eagerly (the solve itself is already jitted through
@@ -224,18 +224,18 @@ def homotopy_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
     ``lax.ppermute`` steps interleaved with the local column-block
     gemms, which XLA's all-reduce combiner cannot re-merge (the
     measured failure mode of the psum block form, docs/design.md §9) —
-    so the transfer genuinely rides ICI behind MXU work on this
-    toolchain. "auto" (default) picks it whenever the row axis is
+    so the transfer can run behind the gemms. "auto" (default) picks it whenever the row axis is
     sharded and ring chunks stay lane-aligned (n ≥ 128·S) unless an
     explicit ``overlap_blocks`` keeps the psum form; "psum" keeps the
     round-4 column-block psums. Ring summation order differs from the
-    psum tree by f32 ulps (the MXU-precision-ladder class of
-    difference; certified precision covers it).
+    psum tree by f32 ulps (the precision-ladder class of difference;
+    certified precision covers it).
 
-    ``batch_native`` (default auto: on-TPU f32 with lane-aligned n, like
-    ``Homotopy.solve_batch``; SS_BATCH_NATIVE=1/0 forces/forbids) runs
-    the slot-space Pallas throughput driver *inside* the shard_map —
-    lane-local scan/transition kernels replicated over the row axis, the
+    ``batch_native`` (default auto: the shared rule
+    homotopy_batch.route_batch_native, as in ``Homotopy.solve_batch``;
+    SS_BATCH_NATIVE=1/0 forces/forbids) runs the slot-space throughput
+    driver *inside* the shard_map — lane-local scan/transition
+    replicated over the row axis, the
     q products psum'd per row shard (solvers/homotopy_batch.py). With
     ``gram=False`` the driver runs gram-free (on-the-fly Gram rows, the
     config-5 large-n regime). Off, the vmapped while_loop core carries
@@ -276,7 +276,7 @@ def homotopy_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
             local_batch = -(-Y.shape[0] // mesh.shape[DATA_AXIS])
             sparse = (gram and local_batch * k_max < 2 * A.shape[0]
                       and k_max < n)
-            batch_native = route_batch_native(local_batch, n, A.dtype,
+            batch_native = route_batch_native(local_batch, A.dtype,
                                               sparse)
     S = mesh.shape[ROW_AXIS]
     if overlap_mode not in (None, "auto", "psum", "ppermute"):
@@ -286,10 +286,13 @@ def homotopy_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
     if overlap_mode in (None, "auto"):
         # auto: the hand-pipelined ppermute ring whenever there is a
         # reduction to hide and the ring chunks stay lane-aligned
-        # (n/S ≥ 128) — on this toolchain it is the only form whose
-        # overlap survives XLA's all-reduce combiner (docs/design.md
-        # §9); an explicit overlap_blocks request keeps the psum form
-        # an explicit overlap_blocks (even 1 = "plain psum") opts out
+        # (n/S ≥ 128). The ring was made the default on the previous
+        # accelerator, where it was the only form whose overlap survived
+        # XLA's all-reduce combiner (docs/design.md §9). On four H100
+        # 80GB HBM3 cards (700 W) at 4096×8192, k=64, b=256 it took
+        # 28.0 ms per batch against psum's 24.3 ms; the default awaits
+        # a traced A/B (ROADMAP queue 1 #6). An explicit overlap_blocks
+        # (even 1 = "plain psum") opts out.
         overlap_mode = ("ppermute"
                         if (batch_native and S > 1 and n >= 128 * S
                             and overlap_blocks is None)
@@ -345,7 +348,7 @@ def homotopy_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
                 mesh, A[:A.shape[0] - pad] if pad else A,
                 Y[:, :Y.shape[1] - pad] if pad else Y,
                 tolerance, max_iterations, k_max=k_max, gram=gram,
-                overlap_split=overlap_split, precision="high",
+                overlap_split=overlap_split, precision=blas.PARITY,
                 batch_native=batch_native, dense=dense,
                 overlap_blocks=overlap_blocks, overlap_mode=overlap_mode,
                 G=G)
@@ -385,17 +388,14 @@ def _omp_sharded_fn(mesh: Mesh, precision: str, gram: bool,
              out_specs=(out_spec, (P(DATA_AXIS), P(DATA_AXIS))),
              check_vma=False)
     def run(A_local, *rest):
-        from ..ops import blas
         if gram_in:
             G_in, Y_local, tol = rest
         else:
             G_in = None
             Y_local, tol = rest
         n = A_local.shape[1]
+        G = G_in if gram_in else (_gram_psum(A_local) if gram else None)
         with blas.precision_scope(precision):
-            G = (G_in if gram_in else
-                 (jax.lax.psum(blas.xgemm(A_local, A_local, trans_a=True),
-                               ROW_AXIS) if gram else None))
             if batch_native:
                 from ..solvers.omp_batch import solve_omp_batch
                 X, rep = solve_omp_batch(
@@ -419,11 +419,11 @@ def _omp_sharded_fn(mesh: Mesh, precision: str, gram: bool,
             X, rep = jax.vmap(solve, in_axes=(0,))(Y_local)
             err = rep.solution_error
             if certified:
-                # sharded ℓ₂ certificate at "high": per-shard partial
+                # sharded ℓ₂ certificate at blas.PARITY: per-shard partial
                 # residual norms, one psum over the row axis (the
                 # homotopy_sharded certificate pattern on the greedy
                 # criterion)
-                with blas.precision_scope("high"):
+                with blas.precision_scope(blas.PARITY):
                     R_loc = Y_local - blas.xgemm(X, A_local, trans_b=True)
                     err = jnp.sqrt(jnp.maximum(jax.lax.psum(
                         jnp.sum(R_loc * R_loc, axis=1), ROW_AXIS), 0)
@@ -454,8 +454,8 @@ def omp_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
     ``batch_native`` (default auto: the homotopy driver's routing rule
     on the per-device lane count, f32 required;
     SS_BATCH_NATIVE=1/0 forces/forbids) runs the slot-space OMP batch
-    driver (solvers/omp_batch.py — fused q + in-place insert/LS
-    kernels) *inside* the shard_map, its q products psum'd per row
+    driver (solvers/omp_batch.py — q product + in-place insert/LS)
+    *inside* the shard_map, its q products psum'd per row
     shard and its reported error the psum'd high-precision residual
     certificate. With ``gram=False`` the driver runs gram-free
     (on-the-fly insert columns, one extra psum per pick — the config-5
@@ -477,10 +477,10 @@ def omp_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
 
     ``precision="certified"`` mirrors ``homotopy_sharded``: the pick
     loop runs at one-pass precision, each lane's reported error is the
-    psum'd high-precision ℓ₂ residual certificate (the driver computes
+    psum'd parity-grade ℓ₂ residual certificate (the driver computes
     it unconditionally; the vmapped loop gets a per-shard partial-norm
     psum), and lanes whose certificate misses the tolerance without
-    exhausting max_iterations re-solve once at "high" — a host-side
+    exhausting max_iterations re-solve once at blas.PARITY — a host-side
     decision, so certified cannot run under an outer jit (a clear
     ValueError replaces the tracer leak).
     """
@@ -517,7 +517,7 @@ def omp_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
         # Gram-gather vmapped formulation outright (api.Omp contract)
         from ..solvers.homotopy_batch import route_batch_native
         batch_native = (not gram_forced) and route_batch_native(
-            local_batch, n, A.dtype,
+            local_batch, A.dtype,
             sparse=local_batch * k_max < 2 * m)
     S = mesh.shape[ROW_AXIS]
     if overlap_mode not in (None, "auto", "psum", "ppermute"):
@@ -552,7 +552,7 @@ def omp_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
     # correlation-formulation routing on the per-device lane count (the
     # api.Omp._route_corr rule; "sparse" gathers a (lanes·k, m_local)
     # tensor per iteration — past the crossover the dense local gemms
-    # win, profiled on v5e). gram=True pins the zero-per-iteration-
+    # avoid it). gram=True pins the zero-per-iteration-
     # collective Gram form (auto-gram still serves the O(k) inserts on
     # the dense route); the dense form pays one rmatvec psum per pick.
     small = local_batch * k_max < 2 * m
@@ -588,7 +588,7 @@ def omp_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
                 mesh, A[:A.shape[0] - pad] if pad else A,
                 Y[:, :Y.shape[1] - pad] if pad else Y,
                 tolerance, max_iterations, k_max=k_max, gram=gram_arg,
-                precision="high", batch_native=batch_native,
+                precision=blas.PARITY, batch_native=batch_native,
                 dense=dense, overlap_blocks=overlap_blocks,
                 overlap_mode=overlap_mode, G=G, picks=picks)
             rh = out_h[-1]
@@ -607,22 +607,27 @@ def omp_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
     return X, rep
 
 
+def _gram_psum(A_local):
+    """AᵀA of a row-sharded A inside shard_map: local gemm at HIGHEST,
+    one psum over the row axis."""
+    with blas.precision_scope("highest"):
+        return jax.lax.psum(blas.xgemm(A_local, A_local, trans_a=True),
+                            ROW_AXIS)
+
+
 @functools.lru_cache(maxsize=32)
 def _gram_replicated_fn(mesh: Mesh):
     @partial(shard_map, mesh=mesh, in_specs=(P(ROW_AXIS, None),),
              out_specs=P(None, None), check_vma=False)
     def run(A_local):
-        from ..ops import blas
-        with blas.precision_scope("highest"):
-            return jax.lax.psum(blas.xgemm(A_local, A_local,
-                                           trans_a=True), ROW_AXIS)
+        return _gram_psum(A_local)
     return jax.jit(run)
 
 
 def gram_replicated(mesh: Mesh, A: jnp.ndarray) -> jnp.ndarray:
     """AᵀA of a row-sharded A, replicated on every device — one psum'd
     gemm. The mesh façade's construct-once Gram (api.Homotopy/Omp with
-    ``mesh=``): computed once at highest MXU precision (the unsharded
+    ``mesh=``): computed once at HIGHEST precision (the unsharded
     ``_lazy_gram`` convention) and passed into every ``*_sharded`` call
     via their ``G=`` argument, so serving calls skip the per-call
     build."""
@@ -646,7 +651,6 @@ def _update_column_fn(mesh: Mesh, with_gram: bool):
                         else P(ROW_AXIS, None)),
              check_vma=False)
     def run(A_local, *rest):
-        from ..ops import blas
         if with_gram:
             G, v_local, j = rest
         else:
@@ -693,7 +697,6 @@ def _qr_sharded_fn(mesh: Mesh, passes: int):
              out_specs=(P(ROW_AXIS, None), P(None, None)),
              check_vma=False)
     def run(A_local):
-        from ..ops import blas
         n = A_local.shape[1]
         eye = jnp.eye(n, dtype=A_local.dtype)
         with blas.precision_scope("highest"):
@@ -701,7 +704,7 @@ def _qr_sharded_fn(mesh: Mesh, passes: int):
             for _ in range(passes):
                 # Gram psum → replicated Cholesky → local Q·R₁⁻¹ gemm:
                 # the only collective per pass is the (n, n) psum; the
-                # O(m·n²) work is local MXU gemms (vs. the reference's
+                # O(m·n²) work is local gemms (vs. the reference's
                 # sequential Householder sweep, qr_decomposition.h:
                 # 94-137, which is unshardable over rows)
                 G = jax.lax.psum(blas.xgemm(Q, Q, trans_a=True), ROW_AXIS)
@@ -722,7 +725,7 @@ def qr_sharded(mesh: Mesh, A: jnp.ndarray, passes: int = 2):
     R (n, n) upper-triangular with positive diagonal, replicated. Each
     pass computes the replicated Gram QᵀQ with ONE (n, n) psum over the
     row shards, Cholesky-factors it locally, and applies R₁⁻¹ as a
-    local MXU gemm; ``passes=2`` (CholeskyQR2) squares away the first
+    local gemm; ``passes=2`` (CholeskyQR2) squares away the first
     pass's κ(A)-dependent orthogonality loss, reaching Householder-
     grade ‖QᵀQ−I‖ for κ(A) ≲ 1/√eps (tests/test_sharding.py pins
     QᵀQ≈I, QR≈A and LS-solve parity vs np.linalg.qr at the reference
@@ -776,7 +779,6 @@ def _cosamp_sharded_fn(mesh: Mesh, precision: str, k_sparsity: int,
              out_specs=(P(DATA_AXIS, None), (P(DATA_AXIS), P(DATA_AXIS))),
              check_vma=False)
     def run(A_local, Y_local, tol):
-        from ..ops import blas
         with blas.precision_scope(precision):
             solve = lambda y_local: solve_cosamp(
                 A_local, y_local, k_sparsity, tol,
@@ -830,11 +832,11 @@ def irls_sharded(mesh: Mesh, Q: jnp.ndarray, R: jnp.ndarray, Y: jnp.ndarray,
     In mode="fast" the only collective in the whole solve is the single
     psum of rhs = Qᵀy — every iteration is replicated O(n²) work.
 
-    ``newton`` (fast mode; default "trsm" — measured within ±5 % of
-    "gemm" on v5e, and trsm keeps the fp trajectory of single solves)
+    ``newton`` (fast mode; default "trsm" — trsm keeps the fp trajectory
+    of single solves)
     selects the Newton application like the unsharded batched path:
     "gemm" inverts the replicated R once per call and applies it as one
-    MXU gemm per iteration across the local lanes (solvers/irls.py
+    gemm per iteration across the local lanes (solvers/irls.py
     _newton_fast — full-f32, algebraically identical).
 
     ``stabilized`` selects the scale-stabilized iteration (see
@@ -875,7 +877,6 @@ def _irls_sharded_fn(mesh: Mesh, mode: str, use_rinv: bool,
                         (P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS))),
              check_vma=False)
     def run(Q_local, R_rep, Y_local, tol):
-        from ..ops import blas
         qop = RowShardedOperator(Q_local, ROW_AXIS)
         r_inv = (blas.xtrsm(R_rep, jnp.eye(R_rep.shape[0], dtype=R_rep.dtype),
                             lower=False) if use_rinv else None)
@@ -902,7 +903,7 @@ def irls_cg_sharded(mesh: Mesh, A: jnp.ndarray, Y: jnp.ndarray, tolerance,
     m replicated. Returns (X: (batch, n), IrlsReportArrays).
 
     Every m-sized CG iterate is replicated; x/weights stay column-
-    sharded; exactly one psum (of A·(D∘Aᵀz), m floats) rides ICI per CG
+    sharded; exactly one psum (of A·(D∘Aᵀz), m floats) crosses devices per CG
     step, plus one tiny all_gather per outer step for the global
     (K+1)-th order statistic of |x| (the ε rule).
 

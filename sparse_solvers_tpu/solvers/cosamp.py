@@ -14,10 +14,10 @@ stalls. Unlike OMP's insert-only support, CoSaMP replaces the whole
 support every round — wrong early picks get evicted, which is what buys
 its RIP recovery guarantee.
 
-TPU-native design (contrast solvers/omp.py): the support is bounded by
+Fixed-shape design (contrast solvers/omp.py): the support is bounded by
 the STATIC target sparsity k, so instead of an online inverse the round
 gathers its ≤ 3k candidate columns into a dense (m, 3k) block and
-solves the LS by one Cholesky of the 3k×3k candidate Gram — MXU-shaped
+solves the LS by one Cholesky of the 3k×3k candidate Gram — dense
 gemms and a small factorization per round, no per-insert bookkeeping.
 Fixed shapes throughout: the support is a (k,) index vector (sentinel
 n), the union a (k + 2k,) vector; sentinel slots gather zero columns

@@ -1,4 +1,4 @@
-"""Homotopy ℓ₁-minimization solver — TPU-native path-following.
+"""Homotopy ℓ₁-minimization solver — fixed-shape path-following.
 
 Solves  min ‖x‖₁  s.t.  Ax = y  by following the homotopy path of
   min_x ‖y − Ax‖₂² + λ‖x‖₁  as λ ↓ tolerance,
@@ -14,14 +14,14 @@ semantic quirks —
   * do-while iteration semantics and the K==0 early break (:236-272),
   * report = {iter, solution_error = final ‖c‖∞} (:274).
 
-TPU-native design (vs. the reference's dynamically-sized C++ loop):
+Device design (vs. the reference's dynamically-sized C++ loop):
   * the whole path loop is one ``lax.while_loop`` over fixed-shape state —
     the active set is a fixed-capacity sorted index vector + boolean mask
     (linalg/active_set.py) and the Gram inverse a zero-padded buffer
     (linalg/online_inverse.py);
   * the O(N) serial γ scan (:130-161) becomes a vectorized candidate
     computation + first-occurrence argmin reduction;
-  * the per-iteration matvecs run on the MXU at HIGHEST precision; batching
+  * the per-iteration matvecs run at HIGHEST precision; batching
     over many signals is ``vmap`` (each lane carries its own support state);
   * no ``lax.cond`` branch ever closes over the sensing matrix — under vmap
     a cond becomes a batched select over its *operands*, and capturing A
@@ -201,8 +201,9 @@ def solve_homotopy_core(op, n: int, y: jnp.ndarray, tolerance,
 
     ``use_gk`` (static) switches the fast-mode direction update to the
     slot-space Gram-companion recurrence instead of the correlation
-    gather; measured slower under vmap (docs/design.md §8) and kept for
-    the batch-native Pallas kernel, which holds the companion in VMEM.
+    gather; measured slower under vmap on the previous accelerator
+    (docs/design.md §8) and kept as the formulation the slot-space
+    batch driver uses (ops/slot.transition).
 
     ``record_path`` (static) additionally records the LARS/LASSO
     regularization path the loop already follows: after breakpoint t the

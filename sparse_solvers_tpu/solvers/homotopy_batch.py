@@ -1,44 +1,34 @@
-"""Batch-native homotopy driver — the TPU throughput path.
+"""Batch-native homotopy driver — the slot-space throughput path.
 
 Semantically equivalent to ``jax.vmap(solve_homotopy)`` in fast mode (same
 path decisions, same per-lane do-while/freeze semantics), restructured so
-the per-iteration work maps onto the chip instead of onto XLA's vmapped
-op-soup. Round-1 profiling of the vmapped core at the headline config
-(benchmarks/results/profile_headline.json) showed <30% of the while-body
-in the two gemms and the rest in batched point gathers (~320 µs each),
-candidate-array materialization, layout-transposing copies of the
-(b,K,K) inverse, and HBM↔VMEM churn of (b,n) loop carries. This driver
-eliminates those structurally:
+that each iteration is a few whole-batch operations instead of the
+vmapped core's per-lane gathers and (b, n) candidate arrays:
 
-  * **slot-space state**: x, the direction and the active-correlation
-    signs live as (b, k_max) arrays; the only (b, n) carries are the
+  * **slot-space state**: x, the direction and the active correlations
+    live as (b, k_max) arrays; the only (b, n) carries are the
     correlation c and an int8 membership mask. x is scattered to (b, n)
     once, after the loop.
-  * **fused γ scan** (ops/pallas/scan.py): streams q and c once,
-    keeping a running (min, leftmost-position) pair per lane — no
-    candidate materialization, no argmin pass, no take_along_axis.
-  * **fused transition** (ops/pallas/transition.py): insert/remove on
-    the padded inverse + slot bookkeeping + direction matvec in one
-    VMEM-resident kernel; the remove path is skipped at tile level on
-    insert-only steps.
-  * XLA keeps what it does at roofline: the direction scatter, the two
-    MXU gemms of q = Aᵀ(A d), the Gram-row fetch, the c/c_inf update
-    fusion, and one (b, k_max) point gather for the insert's Gram
-    column u1.
+  * **γ scan** (ops/slot.find_max_gamma): the candidate formula and one
+    (min, leftmost position) reduction over q and c.
+  * **transition** (ops/slot.transition): insert/remove on the padded
+    inverse, slot bookkeeping and the direction matvec as elementwise
+    work over the (b, K, K) state.
+  * the q = AᵀA·d product: two gemms, on a bf16 copy of A in the
+    one-pass regime (make_qprod); the Gram-row fetch and one (b, k_max)
+    gather for the insert's Gram column u1.
   * **capacity tier ladder** (_plan_tiers): the early path runs in a
-    half-capacity loop — after i iterations at most i+1 slots can be
-    live, so the (b,K) u1 gather, the (b,K)-point direction scatter and
-    the (b,K,K) transition kernel are otherwise paid mostly for
-    provably-empty slots; one zero-pad embed migrates the state to the
-    full-capacity loop. Measured at the headline config (one v5e):
-    57.5 → 45.7–48.0 ms/batch.
+    reduced-capacity loop (after i iterations at most i+1 slots can be
+    live), so the (b,K) u1 gather, the (b,K) direction scatter and the
+    (b,K,K) transition are not paid for provably-empty slots; one
+    zero-pad embed migrates the state to the full-capacity loop.
 
 Sign semantics: the reference recomputes sign(c_Γ) with a tolerance
 deadzone every iteration (reference: src/solvers/homotopy-cpu.cpp:
 257-266, :59-67) — and must: this variant's γ-candidate list does not
 bound γ by λ, so on noisy paths an active correlation can cross zero
 between support changes (carrying insert-time signs was measured to
-diverge exactly there). The transition kernel therefore maintains the
+diverge exactly there). The transition therefore maintains the
 active correlation *values* in slot space by the recurrence
 c_act ← c_act − γ·(AᵀA)[Γ,Γ]·d_act — algebraically identical to
 gathering c[Γ], gather-free — and takes deadzone-signs from them. The
@@ -47,7 +37,7 @@ initial direction uses the reference's sign(‖c‖∞)=+1 quirk
 exactly on well-conditioned workloads (tests/test_batch_native.py); on
 near-degenerate thrashy problems the trajectories may fork at an
 ulp-level candidate tie — the same class of divergence the core shows
-between MXU precision levels — and the tests assert oracle-quality
+between matmul precision levels — and the tests assert oracle-quality
 recovery there instead.
 
 Lane lifecycle: a lane is live while the reference's do-while condition
@@ -59,15 +49,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 from jax import lax
 
 from jax import lax as _lax
 
 from ..ops import blas
-from ..ops.pallas import kernels as _kern
-from ..ops.pallas import scan as _scan
-from ..ops.pallas import transition as _trans
+from ..ops import slot as _slot
 from .homotopy import HomotopyReportArrays, _sign_deadzone
 
 
@@ -91,77 +80,80 @@ def _take1(M, idx):
     return jnp.take_along_axis(M, idx[:, None], axis=1)[:, 0]
 
 
-def route_batch_native(lanes: int | None, n: int, dtype, sparse: bool) -> bool:
-    """THE routing rule for this driver, shared by ``Homotopy._plan`` and
-    ``homotopy_sharded`` so the copies cannot drift (review finding).
+def on_gpu() -> bool:
+    """The slot-space drivers' one platform question, asked by
+    ``route_batch_native`` and ``make_qprod``: is the default device a
+    GPU? There the driver is the throughput route and the DEFAULT-
+    precision q product runs on a bf16 copy of A (tensor-core bf16 at
+    half the bytes of the float32 operand). On the CPU, XLA computes
+    every float32 product in full float32, so neither choice pays."""
+    return jax.default_backend() == "gpu"
 
-    Structural requirements (the Pallas kernels are f32 and round-trip
-    candidate positions through f32): positive lane count, float32,
-    n < 2²⁴. ``SS_BATCH_NATIVE=1`` forces the driver anywhere those hold
-    (the scan kernel pads unaligned n itself); ``=0`` forbids it. The
-    auto default additionally sticks to the measured-win regime:
-    lane-aligned n, on TPU, and not in the ``sparse`` regime the caller
-    computed (where the gather-based vmapped core's traffic is below two
-    passes over A per product)."""
+
+def route_batch_native(lanes: int | None, dtype, sparse: bool) -> bool:
+    """THE routing rule for the slot-space drivers, shared by
+    ``Homotopy._plan``, ``Omp``, ``homotopy_sharded`` and ``omp_sharded``
+    so the copies cannot drift.
+
+    Structural requirements: a positive lane count and float32 (the
+    bf16 one-pass q product and the drivers' tests are float32; f64
+    keeps the vmapped core). ``SS_BATCH_NATIVE=1`` forces the driver
+    wherever those hold; ``=0`` forbids it. The auto default takes the
+    driver on a GPU outside the ``sparse`` regime the caller computed
+    (where the gather-based vmapped core's traffic is below two passes
+    over A per product)."""
     import os
 
     import numpy as _np
 
-    structural = (lanes is not None and lanes > 0
-                  and _np.dtype(dtype) == _np.float32 and n < (1 << 24))
-    if not structural:
+    if not (lanes is not None and lanes > 0
+            and _np.dtype(dtype) == _np.float32):
         return False
     env = os.environ.get("SS_BATCH_NATIVE")
-    if env == "1":
-        return True
-    if env == "0":
-        return False
-    import jax
-    return (not sparse and n % 128 == 0
-            and jax.default_backend() == "tpu")
+    if env in ("0", "1"):
+        return env == "1"
+    return not sparse and on_gpu()
 
 
-def make_qprod(A, psum, use_kernel: bool, interp: bool,
-               overlap_blocks: int, fused_q: bool | None, b: int, n: int,
+def make_qprod(A, psum, overlap_blocks: int, bf16_q: bool | None, n: int,
                overlap_mode: str = "psum", axis: str | None = None,
                axis_size: int | None = None):
     """Shared q = AᵀA D product factory for the slot-space batch drivers
     (homotopy and OMP — extracted so the copies cannot drift, like
-    ``route_batch_native``). Returns ``(qprod, fused_q, A16)``.
+    ``route_batch_native``). Returns ``(qprod, bf16_q, A16)``.
 
-    ``fused_q=None`` auto-selects the one-pass bf16 kernel in the
-    one-pass (DEFAULT) regime; at high/highest the two-gemm form honors
-    the requested passes. ``overlap_blocks`` > 1 forces the explicit
-    two-step (the fused kernel produces q whole and would serialize
-    behind a single blocking all-reduce) and splits the second gemm
-    into independently-psum'd column blocks: block j's all-reduce has
-    no data dependence on block j+1's local gemm, so an async-capable
-    scheduler CAN hide each psum behind the next block's MXU work.
-    Exact: every q element is the same local-row dot followed by the
-    same psum reduction tree as the unsplit form. Caveat measured on
-    this toolchain (docs/design.md §9): XLA's all-reduce combiner
-    re-merges the S independent all-reduces into one variadic
-    all-reduce, so the offered overlap is declined — which is what
-    ``overlap_mode="ppermute"`` exists to fix.
+    ``bf16_q`` selects the one-pass bf16 product: both gemms read a bf16
+    copy A16 of A with float32 accumulation (ops/slot.gemm_bf16, the
+    form of ops/slot.normal_matvec_bf16), in every form below. None =
+    auto: on at DEFAULT precision on a GPU (``on_gpu``). Off, the
+    float32 gemms honor the traced precision.
+    ``overlap_blocks`` > 1 splits the second gemm into
+    independently-psum'd column blocks: block j's all-reduce has no
+    data dependence on block j+1's local gemm, so an async-capable
+    scheduler can hide each psum behind the next block's gemm. Exact:
+    every q element is the same local-row dot followed by the same psum
+    reduction tree as the unsplit form. XLA's all-reduce combiner may
+    re-merge the S independent all-reduces into one variadic all-reduce
+    and so decline the offered overlap (docs/design.md §9), which is
+    what ``overlap_mode="ppermute"`` exists to avoid.
 
     ``overlap_mode="ppermute"`` (sharded only) hand-pipelines the
     reduction as a collective-matmul ring (the scaling-book pattern the
     combiner cannot touch): q's columns split into S = axis_size
     chunks; at ring step t each device computes its LOCAL partial for
-    chunk ((i−t) mod S) on the MXU and accumulates it into the chunk
-    arriving from its ring predecessor, then ``lax.ppermute``s the
-    running sum onward. The S−1 permutes are chained through distinct
-    data (no combiner can merge them) and each is dataflow-independent
-    of the NEXT step's local gemm, so the transfer rides ICI behind
-    MXU work. After S steps device i holds the fully-reduced chunk
-    (i+1) mod S; one all_gather rebuilds q. Wire bytes equal the ring
-    all-reduce's reduce-scatter phase + gather phase — no extra
-    traffic. Algebraically exact (every element is the same set of
-    per-shard partial dots); the ring fixes the summation order to
-    ring-visit order, which may differ from the psum tree's by
-    f32-rounding ulps — the same class of difference as the MXU
-    precision ladder, covered by the certified error path
-    (tests pin trajectory + solution parity on the virtual mesh)."""
+    chunk ((i−t) mod S) and accumulates it into the chunk arriving from
+    its ring predecessor, then ``lax.ppermute``s the running sum
+    onward. The S−1 permutes are chained through distinct data (no
+    combiner can merge them) and each is dataflow-independent of the
+    NEXT step's local gemm, so the transfer can run behind that gemm.
+    After S steps device i holds the fully-reduced chunk (i+1) mod S;
+    one all_gather rebuilds q. Wire bytes equal the ring all-reduce's
+    reduce-scatter phase + gather phase — no extra traffic.
+    Algebraically exact (every element is the same set of per-shard
+    partial dots); the ring fixes the summation order to ring-visit
+    order, which may differ from the psum tree's by f32-rounding ulps —
+    covered by the certified error path (tests pin trajectory +
+    solution parity on the virtual mesh)."""
     if overlap_mode not in ("psum", "ppermute"):
         raise ValueError(
             f"overlap_mode must be 'psum' or 'ppermute', got {overlap_mode!r}")
@@ -175,30 +167,29 @@ def make_qprod(A, psum, use_kernel: bool, interp: bool,
             raise ValueError(
                 "overlap_blocks is the psum-mode knob; the ppermute ring "
                 "always uses S = axis_size chunks")
-        fused_q = False
-    if overlap_blocks > 1:
-        fused_q = False
-    if fused_q is None:
-        fused_q = (use_kernel
-                   and blas.current_precision() == _lax.Precision.DEFAULT
-                   and _kern._bf16_eligible(-(-b // 8) * 8, A.shape[0], n))
-    A16 = A.astype(jnp.bfloat16) if fused_q else None
+    if bf16_q is None:
+        bf16_q = default_bf16_q()
+    A16 = A.astype(jnp.bfloat16) if bf16_q else None
+    # every form reads the same operand with the same gemm, so the
+    # sharded forms round exactly as the unsharded one does
+    B = A16 if bf16_q else A
+    mm = _slot.gemm_bf16 if bf16_q else blas.xgemm
 
     if overlap_mode == "ppermute":
         S = axis_size
         blk = -(-n // S)
         npad = S * blk
         perm = [(s, (s + 1) % S) for s in range(S)]
-        Ap = jnp.pad(A, ((0, 0), (0, npad - n))) if npad != n else A
+        Bp = jnp.pad(B, ((0, 0), (0, npad - n))) if npad != n else B
 
         def qprod(D):
-            p = blas.xgemm(D, A, trans_b=True)      # (b, m_local) local
+            p = mm(D, B, trans_b=True)              # (b, m_local) local
             my = _lax.axis_index(axis)
             acc = None
             for t in range(S):
                 j = (my - t) % S                    # this step's chunk
-                Ablk = _lax.dynamic_slice_in_dim(Ap, j * blk, blk, axis=1)
-                contrib = blas.xgemm(p, Ablk)       # local partial (b, blk)
+                Bblk = _lax.dynamic_slice_in_dim(Bp, j * blk, blk, axis=1)
+                contrib = mm(p, Bblk)               # local partial (b, blk)
                 acc = contrib if acc is None else acc + contrib
                 if t < S - 1:
                     acc = _lax.ppermute(acc, axis, perm)
@@ -212,21 +203,23 @@ def make_qprod(A, psum, use_kernel: bool, interp: bool,
         blk = -(-n // overlap_blocks)
 
         def qprod(D):
-            p = blas.xgemm(D, A, trans_b=True)       # (b, m_local) local
+            p = mm(D, B, trans_b=True)               # (b, m_local) local
             return jnp.concatenate(
-                [psum(blas.xgemm(p, _lax.slice_in_dim(A, j0,
-                                                      min(j0 + blk, n),
-                                                      axis=1)))
+                [psum(mm(p, _lax.slice_in_dim(B, j0, min(j0 + blk, n),
+                                               axis=1)))
                  for j0 in range(0, n, blk)], axis=1)
     else:
         def qprod(D):
             """q = AᵀA D (psum'd over the row shards when sharded)."""
-            if fused_q:
-                return psum(_kern.normal_matvec_fused_bf16(
-                    A16, D, interpret=interp))
-            return psum(blas.xgemm(blas.xgemm(D, A, trans_b=True), A))
+            return psum(mm(mm(D, B, trans_b=True), B))
 
-    return qprod, fused_q, A16
+    return jax.named_scope("slot_q_product")(qprod), bf16_q, A16
+
+
+def default_bf16_q() -> bool:
+    """``make_qprod``'s auto choice for the traced precision scope."""
+    return (blas.current_precision() == _lax.Precision.DEFAULT
+            and on_gpu())
 
 
 def gram_slot_gather(G, idx, indices, n: int):
@@ -234,23 +227,15 @@ def gram_slot_gather(G, idx, indices, n: int):
     G[idx, idx] — the per-insert Gram-column slot extraction shared by
     both slot-space drivers.
 
-    TPU point gathers are request-bound (~17 ns/element measured on
-    v5e: 330 µs/iter for the b·K take_along_axis at the headline
-    shape), so the fast path gathers each slot's aligned 128-lane BLOCK
-    from the row set (18 K × 512 B streaming reads through one flat
-    take) and extracts the element with a one-hot select-sum — 170 µs
-    measured, exact: the one-hot sum adds exact zeros, so u1/vtv are
+    The fast path gathers each slot's aligned 128-element block from
+    the fetched (b, n) row set through one flat take and extracts the
+    element with a one-hot select-sum, in place of b·K point gathers.
+    Exact: the one-hot sum adds exact zeros, so u1/vtv are
     bit-identical to the point-gather form. Falls back to
-    take_along_axis when n is not lane-aligned.
-
-    The (b, n) row prefetch is LOAD-BEARING, not waste (round-5
-    negative result, two compile rolls): taking the blocks directly
-    from G — the "obvious" saving of the 8 MB/iter row pass — measured
-    43.7–44.1 ms/batch vs 36.3 at the headline (−17 %). Scattered
-    512 B reads over the 256 MB Gram run far below the engine rate the
-    same gather hits inside the contiguous (b, n) row buffer; the
-    prefetch is one dense streaming pass that buys address locality
-    for the block take."""
+    take_along_axis when n is not a multiple of 128. The block gather
+    and the row prefetch were chosen by measurements on the previous
+    accelerator; on the GPU they await an A/B against the plain point
+    gather (ROADMAP queue 1 #5)."""
     b = idx.shape[0]
     row = jnp.take(G, idx, axis=0)                   # (b, n) streaming
     safe = jnp.minimum(indices, n - 1)
@@ -275,16 +260,14 @@ def gram_slot_gather(G, idx, indices, n: int):
     return u1, vtv
 
 
-def make_gram_u1(A, A16, fused_q: bool, psum, dtype):
+def make_gram_u1(A, A16, bf16_q: bool, psum, dtype):
     """Shared gram-free insert-column factory: u1[j] = ⟨A e_ind_j,
     A e_idx⟩ over the live slots — two contiguous row gathers from a
     transposed copy and a b·K·m batched dot (the config-5 regime where
-    the n² Gram cannot exist). At DEFAULT (one-pass) precision the
-    dot's inputs are bf16 either way, so gather from a bf16 transposed
-    copy — half the gather traffic and no post-gather convert pass."""
-    _one_pass = (blas.current_precision() == _lax.Precision.DEFAULT)
-    ATx = (A16.T if fused_q
-           else (A.astype(jnp.bfloat16).T if _one_pass else A.T))
+    the n² Gram cannot exist). On the one-pass bf16 route the gathers
+    read the transposed bf16 copy: half the gather traffic, and the dot
+    takes bf16 operands with float32 accumulation."""
+    ATx = A16.T if bf16_q else A.T
 
     def gram_u1(idx, indices):
         V = jnp.take(ATx, idx, axis=0)           # (b, m)
@@ -308,13 +291,15 @@ def _plan_tiers(k_max: int, max_iterations: int, ladder) -> list[int]:
     homotopy-cpu.cpp:246), so the early path cannot use a full-capacity
     inverse buffer — every capacity-proportional cost (the insert's
     (b,K) Gram-column gather, the (b,K)-point direction scatter, the
-    (b,K,K) transition kernel) is paid for slots that are provably
+    (b,K,K) transition) is paid for slots that are provably
     empty. Run iterations < K/2−1 in a half-capacity loop, then zero-pad
     the state into the full-capacity loop (one embed, exact: padded
-    slots carry the sentinel index and zero rows, which the kernels
-    already treat as absent).
+    slots carry the sentinel index and zero rows, which the transition
+    already treats as absent).
 
-    ladder: None = auto (on where measured beneficial: k_max ≥ 48),
+    ladder: None = auto (on for k_max ≥ 48; the threshold and the
+    three-tier depth were measured on the previous accelerator and
+    await an A/B on the GPU, ROADMAP queue 1 #5),
     True = force two tiers when structurally possible, False = off, or
     an explicit ascending tier list ending at k_max (infeasible
     intermediate tiers are dropped).
@@ -326,13 +311,11 @@ def _plan_tiers(k_max: int, max_iterations: int, ladder) -> list[int]:
             f"ladder must be ascending and end at k_max={k_max}: {ladder}")
         return [K for K in ladder
                 if K == k_max or (2 <= K and max_iterations > K)]
-    half = lambda K: -(-((K + 1) // 2) // 8) * 8  # ceil(K/2), sublane mult
+    half = lambda K: -(-((K + 1) // 2) // 8) * 8  # ceil(K/2), mult of 8
     if ladder is None and k_max < 48:
-        return [k_max]  # auto: measured win starts at large capacities
+        return [k_max]
     # halve down to a 16-slot floor, at most 3 loops total (each tier is
-    # a separately compiled while loop; 3 measured faster than 2 at the
-    # headline config — 42.5 vs 45.3 ms/batch — with diminishing returns
-    # and growing compile cost beyond that)
+    # a separately compiled while loop, so compile cost grows with it)
     tiers = [k_max]
     t = half(k_max)
     while t >= 16 and t < tiers[0] and len(tiers) < 3:
@@ -378,9 +361,8 @@ def synced_while(body, live_fn, st, sync_axes):
 
 def _embed(s: "_BState", K2: int, n: int) -> "_BState":
     """Zero-pad a capacity-K1 state into capacity K2 (> K1). Exact: the
-    kernels derive slot liveness from kk/indices, and reductions over
-    the slot axis pad to the 128-lane tile either way, so the padded
-    state continues the identical fp trajectory."""
+    transition derives slot liveness from kk/indices, and the padded
+    slots add exact zeros to every slot-axis reduction."""
     K1 = s.x_act.shape[1]
     p = K2 - K1
     pad2 = lambda a: jnp.pad(a, ((0, 0), (0, p)))
@@ -396,9 +378,8 @@ def _embed(s: "_BState", K2: int, n: int) -> "_BState":
 def solve_homotopy_batch(A: jnp.ndarray, G: jnp.ndarray | None,
                          Y: jnp.ndarray,
                          tolerance, max_iterations: int, k_max: int,
-                         use_kernel: bool | None = None,
                          ladder: bool | None = None,
-                         fused_q: bool | None = None,
+                         bf16_q: bool | None = None,
                          axis: str | None = None,
                          dense: bool = True,
                          record_path: bool = False,
@@ -409,14 +390,12 @@ def solve_homotopy_batch(A: jnp.ndarray, G: jnp.ndarray | None,
     """Fast-mode batched homotopy — the slot-space throughput driver.
 
     A: (m, n); G = AᵀA (n, n) or None; Y: (b, m). Returns (X (b, n),
-    HomotopyReportArrays with per-lane arrays). ``use_kernel=False`` runs
-    the Pallas kernels in interpret mode (tests / CPU backends);
-    ``ladder`` controls the capacity tiers (see _plan_tiers).
+    HomotopyReportArrays with per-lane arrays). ``ladder`` controls the capacity tiers (see _plan_tiers).
 
     ``G=None`` runs **gram-free**: the insert's K live Gram entries
     u1[j] = ⟨A e_ind_j, A e_idx⟩ are computed on the fly — two
     contiguous row gathers from a transposed copy plus a b·K·m batched
-    dot (see gram_u1 below) — instead of an n×n table in HBM. This is
+    dot (see gram_u1 below) — instead of an n×n table in device memory. This is
     the config-5 regime (n too large for n² bytes); everything else
     about the path is identical.
 
@@ -426,7 +405,7 @@ def solve_homotopy_batch(A: jnp.ndarray, G: jnp.ndarray | None,
     correlation Aᵀy, the q products, the gram-free diag/rows) ends in
     one ``lax.psum`` over ``axis`` — AᵀA = Σ_shards A_sᵀA_s, so partial
     per-shard products sum exactly. The (b, K) slot state, the γ scan
-    and the transition kernel are replicated across the row axis (they
+    and the transition are replicated across the row axis (they
     are identical deterministic functions of the psum'd q), which is the
     same replication contract as the sharded vmapped core
     (parallel/sharding.py).
@@ -466,12 +445,11 @@ def solve_homotopy_batch(A: jnp.ndarray, G: jnp.ndarray | None,
     gemms, which XLA's all-reduce combiner cannot re-merge (the psum
     block form's measured failure mode, docs/design.md §9). Summation
     order is ring-visit order — ulp-level fp differences from the psum
-    tree, same class as the MXU precision ladder."""
+    tree, same class as the matmul precision ladder."""
     n = A.shape[1]
     T = max_iterations + 1
     if Y.shape[0] == 0:
-        # empty batch: the Pallas kernels' block shapes cannot be built
-        # for b=0 (and there is nothing to solve)
+        # empty batch: nothing to solve
         report = HomotopyReportArrays(
             iter=jnp.zeros((0,), jnp.uint32),
             solution_error=jnp.zeros((0,), A.dtype))
@@ -493,8 +471,8 @@ def solve_homotopy_batch(A: jnp.ndarray, G: jnp.ndarray | None,
         # overflow path can never trigger inside a non-final tier
         cap = None if t == len(tiers) - 1 else Kt - 1
         init, body, lane_live = make_stepper(
-            A, G, Y, tolerance, max_iterations, Kt, use_kernel, it_cap=cap,
-            fused_q=fused_q, axis=axis, overlap_blocks=overlap_blocks,
+            A, G, Y, tolerance, max_iterations, Kt, it_cap=cap,
+            bf16_q=bf16_q, axis=axis, overlap_blocks=overlap_blocks,
             overlap_mode=overlap_mode, axis_size=axis_size)
         st = init if state is None else _embed(state, Kt, n)
         if not record_path:
@@ -554,15 +532,15 @@ def densify_batch(values: jnp.ndarray, indices: jnp.ndarray, n: int):
 
 
 def make_stepper(A, G, Y, tolerance, max_iterations: int, k_max: int,
-                 use_kernel: bool | None = None, it_cap: int | None = None,
-                 fused_q: bool | None = None, axis: str | None = None,
+                 it_cap: int | None = None,
+                 bf16_q: bool | None = None, axis: str | None = None,
                  overlap_blocks: int = 1, overlap_mode: str = "psum",
                  axis_size: int | None = None):
     """Build (initial state, body, lane_live) for the batch driver —
     exposed so tests can step the iteration eagerly. ``it_cap`` freezes
     lanes at an iteration bound (the capacity-ladder phase boundary:
-    such lanes resume unchanged in the next tier's loop). ``fused_q``
-    controls the one-pass bf16 q-product kernel (None = auto). ``G=None``
+    such lanes resume unchanged in the next tier's loop). ``bf16_q``
+    controls the one-pass bf16 q product (None = auto, make_qprod). ``G=None``
     = gram-free, ``axis`` = row-shard psum axis, ``overlap_blocks``
     splits the sharded q product into independently-psum'd column blocks
     (see solve_homotopy_batch)."""
@@ -577,41 +555,34 @@ def make_stepper(A, G, Y, tolerance, max_iterations: int, k_max: int,
             "overlap — pass axis=... or overlap_blocks=1")
     if dtype != jnp.float32:
         raise ValueError(
-            "the batch-native driver is float32 (its Pallas kernels are); "
+            "the batch-native driver is float32; "
             f"got {dtype} — use the vmapped core (api routes f64 there)")
     tol = jnp.asarray(tolerance, dtype)
-    if use_kernel is None:
-        import jax
-        use_kernel = jax.default_backend() == "tpu"
-    interp = not use_kernel
     bidx = jnp.arange(b)
     psum = (lambda v: _lax.psum(v, axis)) if axis is not None else (
         lambda v: v)
     gdiag = jnp.diagonal(G) if G is not None else psum(
         jnp.sum(A * A, axis=0))
 
-    # One-pass q product: at DEFAULT MXU precision the two-gemm q is
-    # HBM-bound on two reads of A; the fused kernel streams a bf16 copy
-    # once (ops/pallas/kernels.py normal_matvec_fused_bf16). Numerics
-    # match the DEFAULT two-gemm form (same bf16 roundings) up to f32
-    # accumulation order. See make_qprod for the overlapped sharded form.
-    qprod, fused_q, A16 = make_qprod(A, psum, use_kernel, interp,
-                                     overlap_blocks, fused_q, b, n,
+    # q product: on the one-pass route two bf16 gemms on a bf16 copy of
+    # A (ops/slot.normal_matvec_bf16), else the float32 two-gemm form at
+    # the traced precision. See make_qprod for the overlapped sharded
+    # forms.
+    qprod, bf16_q, A16 = make_qprod(A, psum, overlap_blocks, bf16_q, n,
                                      overlap_mode=overlap_mode,
                                      axis=axis, axis_size=axis_size)
 
     # Gram-free insert column: the transition consumes ONLY the K live
     # entries u1[j] = (AᵀA)[ind_j, idx] = ⟨A e_ind_j, A e_idx⟩ (plus the
     # diagonal, read from the exact gdiag). Materializing the full
-    # (b, n) Gram row Aᵀ(A e_idx) would pay a b·m·n gemm per iteration
-    # (profiled at 384 µs + a 102 µs point gather at the config-5 bench
-    # shape); the direct form is two contiguous row gathers from a
-    # transposed copy — (b, m) for the inserted column, (b, K, m) for
-    # the active columns — and a b·K·m batched dot: ~25× fewer MACs.
-    # Same products, same f32 accumulation of the same (bf16) inputs;
-    # only the MXU tiling order differs.
+    # (b, n) Gram row Aᵀ(A e_idx) would pay a b·m·n gemm per iteration;
+    # the direct form is two contiguous row gathers from a transposed
+    # copy — (b, m) for the inserted column, (b, K, m) for the active
+    # columns — and a b·K·m batched dot: n/K times fewer MACs. Same
+    # products, same f32 accumulation of the same inputs; only the
+    # summation order differs.
     if G is None:
-        gram_u1 = make_gram_u1(A, A16, fused_q, psum, dtype)
+        gram_u1 = make_gram_u1(A, A16, bf16_q, psum, dtype)
 
     # --- init (solve_homotopy_core init, batched; homotopy-cpu.cpp:215-229)
     C0 = psum(blas.xgemm(Y, A))                 # c0 = Aᵀy per lane
@@ -649,19 +620,18 @@ def make_stepper(A, G, Y, tolerance, max_iterations: int, k_max: int,
     def body(s: _BState) -> _BState:
         live = lane_live(s)
 
-        # q = AᵀA d: scatter the slot direction, then either one fused
-        # bf16 pass over A or two MXU gemms (psum'd per row shard)
+        # q = AᵀA d: scatter the slot direction, then two gemms (bf16 on
+        # the one-pass route; psum'd per row shard)
         D = jnp.zeros((b, n), dtype).at[bidx[:, None], s.indices].set(
             s.d_act, mode="drop")
         q = qprod(D)
 
-        gamma_raw, idx = _scan.find_max_gamma_fused(
-            q, s.c, s.mask, s.c_inf, s.x_act, s.d_act, s.indices,
-            interpret=interp)
+        gamma_raw, idx = _slot.find_max_gamma(
+            q, s.c, s.mask, s.c_inf, s.x_act, s.d_act, s.indices)
 
         # membership from the slot indices, not the mask: a (b,K) compare
-        # keeps the 2 MB mask carry out of XLA's VMEM staging (the mask's
-        # only readers are then the scan kernel and its point update)
+        # instead of a (b,n) read (the mask's only readers are the scan
+        # and its point update)
         present = jnp.any(s.indices == idx[:, None], axis=1)
         empty = present & (s.kk == 1)
         if k_max <= max_iterations:
@@ -678,10 +648,8 @@ def make_stepper(A, G, Y, tolerance, max_iterations: int, k_max: int,
         # with vtv = ‖A e_idx‖² from the exact f32 gdiag (it feeds the
         # insert's degeneracy guard)
         if G is not None:
-            # vtv reads from the fetched row set too (a separate gdiag
-            # gather kept a loop-invariant carry that XLA copied into
-            # VMEM every iteration); block-extraction rationale in
-            # gram_slot_gather
+            # vtv reads from the fetched row set too; block-extraction
+            # rationale in gram_slot_gather
             u1, vtv = gram_slot_gather(G, idx, s.indices, n)
         else:
             u1 = gram_u1(idx, s.indices)
@@ -698,13 +666,12 @@ def make_stepper(A, G, Y, tolerance, max_iterations: int, k_max: int,
         # would return X = 0 for the lane
         dorm = live & present & ~empty
         # `deg` flags inserts whose Schur complement was rounding noise
-        # (support at rank deficiency): the kernel leaves the lane's
+        # (support at rank deficiency): the transition leaves the lane's
         # state untouched and the lane breaks below, like a capacity
         # overflow — solution intact, honest error > tol
-        inv1, gk1, x_act1, d_act1, c_act1, ind1, deg = _trans.transition(
+        inv1, gk1, x_act1, d_act1, c_act1, ind1, deg = _slot.transition(
             s.inv, s.gk, s.x_act, s.d_act, s.c_act, s.indices, u1, idx,
-            s.kk, gamma, vtv, cnew, live, doins, dorm, tol, n,
-            interpret=interp)
+            s.kk, gamma, vtv, cnew, live, doins, dorm, tol, n)
 
         stepped = live & ~empty & ~deg
         c1 = jnp.where(stepped[:, None], s.c - gamma[:, None] * q, s.c)
@@ -719,7 +686,7 @@ def make_stepper(A, G, Y, tolerance, max_iterations: int, k_max: int,
         # per-lane finiteness break: the reference's arithmetic on
         # rank-deficient supports can overflow through a huge 1/den
         # (negative/noise-level dens are allowed through deliberately —
-        # see the transition kernel's guard); a lane whose slot state
+        # see ops/slot._bordered_insert); a lane whose slot state
         # went non-finite stops here with its committed (finite) x and c
         # rather than poisoning later iterations
         blew = live & ~(jnp.isfinite(x_act1).all(axis=1)

@@ -17,8 +17,8 @@ Algorithmic parity target: reference src/solvers/irls-cpu.cpp:39-124 —
   * report = {iter, solution_error = eps, spd_failure} (:123) — note the
     reported error is eps, not a residual norm.
 
-TPU-native notes: the loop is one ``lax.while_loop``; the Newton step is two
-MXU gemms (Qᵀ(Q∘w) dominates at O(MN²)) + XLA's blocked Cholesky and
+Device notes: the loop is one ``lax.while_loop``; the Newton step is two
+gemms (Qᵀ(Q∘w) dominates at O(MN²)) + XLA's blocked Cholesky and
 triangular solves; vmap over signals shares Q/R across lanes.
 """
 
@@ -83,9 +83,9 @@ def _newton_fast(R, rhs, w, dtype, r_inv=None):
 
     ``r_inv`` selects the *batched-throughput* application of R⁻¹: a
     matvec against the explicitly-inverted triangle (cached once per
-    sensing matrix), which vmap turns into one (b,n)×(n,n) MXU gemm —
-    a back-substitution is a length-n dependency chain the MXU cannot
-    pipeline across lanes. Algebraically identical, fp trajectory
+    sensing matrix), which vmap turns into one (b,n)×(n,n) gemm —
+    a back-substitution is a length-n dependency chain a matrix unit
+    cannot pipeline across lanes. Algebraically identical, fp trajectory
     differs in the last bits (tests pin iteration parity at the
     reference tolerance regime).
 
@@ -98,9 +98,9 @@ def _newton_fast(R, rhs, w, dtype, r_inv=None):
     if r_inv is not None:
         # full-f32 contraction regardless of the instance precision knob:
         # the back-substitution this replaces is always full precision
-        # (triangular_solve has no MXU precision level), so a "default"
+        # (triangular_solve has no precision level), so a "default"
         # precision instance must not silently degrade its Newton solve
-        # to a one-pass bf16 product
+        # to a TF32 product
         with blas.precision_scope("highest"):
             xn = blas.xgemv(r_inv, rhs / w)
     else:
@@ -132,7 +132,7 @@ def solve_irls_core(qop, R: jnp.ndarray, y: jnp.ndarray, tolerance,
     solve per iteration — and, in the sharded case, zero collectives per
     iteration. mode="exact" reproduces the reference's dense
     gemm+Cholesky step per iteration. ``r_inv`` (fast mode only) applies
-    a precomputed R⁻¹ instead of back-substitution — the batched MXU
+    a precomputed R⁻¹ instead of back-substitution — the batched gemm
     formulation (see _newton_fast).
 
     ``stabilized`` (beyond reference; composes with either mode) divides

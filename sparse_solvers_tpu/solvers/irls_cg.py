@@ -28,7 +28,7 @@ reference's non-convex flavor, irls-cpu.cpp:70):
 until the relative sup-norm change of x falls below ``tolerance`` or
 ``max_iterations`` outer steps. A D Aᵀ is SPD for ε > 0 and m ≤ n, so CG
 is the natural inner solver; each CG step costs one matvec + one rmatvec
-(2mn FLOPs) — two MXU gemvs on TPU.
+(2mn FLOPs) — two gemvs.
 
 Report-field parity with the reference IRLS (include/ss/policies.h:58-71):
 ``iter``/``solution_error``/``spd_failure`` — solution_error is the final
@@ -38,7 +38,7 @@ non-finite curvature pᵀBp — the analog of the reference's Cholesky pivot
 failure, irls-cpu.cpp:50-51). Unlike the reference's needle-matching IRLS
 there is no final x/Σx normalization: basis-pursuit solutions are signed.
 
-TPU-native notes: both loops are ``lax.while_loop``; state updates are
+Device notes: both loops are ``lax.while_loop``; state updates are
 gated per-lane on a live flag so ``vmap`` lanes that converge early stay
 bit-stable while other lanes continue; everything is fixed-shape.
 """

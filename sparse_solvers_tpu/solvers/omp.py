@@ -1,4 +1,4 @@
-"""Orthogonal Matching Pursuit — TPU-native greedy sparse recovery.
+"""Orthogonal Matching Pursuit — fixed-shape greedy sparse recovery.
 
 Beyond-reference capability (the reference ships homotopy + IRLS only):
 OMP is the standard greedy companion to those solvers — at each step it
@@ -10,7 +10,7 @@ least-squares problem on the grown support
 until ‖r‖₂ ≤ tolerance or the support budget is spent (Pati, Rezaiifar
 & Krishnaprasad 1993; Tropp & Gilbert 2007).
 
-TPU-native design — the same fixed-shape machinery as the homotopy
+Device design — the same fixed-shape machinery as the homotopy
 loop (solvers/homotopy.py):
 
   * one ``lax.while_loop`` whose state carries the k_max-capacity
@@ -19,7 +19,7 @@ loop (solvers/homotopy.py):
     incrementally-updated inverse instead of a per-iteration QR;
   * A_Γᵀy never touches A: its entries are c0[Γ] for c0 = Aᵀy computed
     once, so the per-iteration cost is the single correlation product
-    c = c0 − (AᵀA) x̂ (Gram-gather or two MXU gemvs — the homotopy
+    c = c0 − (AᵀA) x̂ (Gram-gather or two gemvs — the homotopy
     q-phase cost), plus O(k²) slot-space updates;
   * ‖r‖₂ is free: r ⊥ A_Γ x̂ at the LS solution, so
     ‖r‖² = ‖y‖² − (A_Γᵀy)ᵀ x_Γ — no residual materialization;
@@ -97,11 +97,10 @@ def solve_omp_core(op, n: int, y: jnp.ndarray, tolerance,
       * "sparse" — gather the k active columns of A, then one rmatvec:
         O(k·m) gathered bytes per lane. Right for single/low-batch
         solves; under a large vmap the gather materializes a
-        (batch·k, m) tensor that dwarfs one dense pass (profiled on
-        v5e: 1.4 ms/iteration of pure gather at b=256, k_max=72);
-      * "dense"  — scatter x̂ dense and run the two full MXU gemms
+        (batch·k, m) tensor that dwarfs one dense pass;
+      * "dense"  — scatter x̂ dense and run the two full gemms
         A x̂ / Aᵀr; amortized across a large batch this is the
-        fastest formulation (the homotopy driver's fused-q insight).
+        fastest formulation (the homotopy driver's q-product insight).
     Default None = "gram" when the operator holds a Gram else "sparse"
     (api.Omp routes by batch — see Omp._route_corr).
 

@@ -6,28 +6,27 @@ pass; this driver is the slot-space batch formulation (the homotopy
 batch driver's playbook, solvers/homotopy_batch.py) for the one-pass
 regime:
 
-  * the correlation product c = c₀ − AᵀA x̂ runs as ONE Pallas pass over
-    a bf16 copy of A (ops/pallas/kernels.py normal_matvec_fused_bf16 —
-    q = Aᵀ(A x̂) with A streamed once);
-  * the insert + LS re-solve is one fused in-place kernel over the
-    (b,K,K) inverse (ops/pallas/omp_insert.py) — no functional-update
-    HBM round trip per iteration;
+  * the correlation product c = c₀ − AᵀA x̂ is the shared q product
+    (homotopy_batch.make_qprod: two bf16 gemms on a bf16 copy of A in
+    the one-pass regime);
+  * the insert + LS re-solve is elementwise work over the (b,K,K)
+    inverse (ops/slot.omp_insert), updated in place in the loop carry;
   * all slot state is incremental: OMP only inserts, so A_Γᵀy grows by
-    one gathered scalar per pick (c₀ is computed once at full 6-pass
+    one gathered scalar per pick (c₀ is computed once at HIGHEST
     precision — it is every LS right-hand side and the rss identity's
     dominant noise term) and membership is one scattered mask byte;
   * per-lane ‖r‖² uses the LS identity ‖y‖² − (A_Γᵀy)ᵀx_Γ in-loop (its
     rounding floor only affects *when* a lane stops — the stall
-    detector bounds it), and the REPORTED error is a final
-    high-precision certificate ‖y − Ax‖₂ computed once outside the
-    loop from the returned solution — the homotopy "certified" pattern
+    detector bounds it), and the REPORTED error is a final HIGHEST-
+    precision certificate ‖y − Ax‖₂ computed once outside the loop from
+    the returned solution — the homotopy "certified" pattern
     (docs/design.md §3) applied to the greedy family.
 
 With a precomputed Gram the per-pick insert column is one G-row
 gather; ``G=None`` runs **gram-free** (the config-5 regime: n too
 large for an n² table) — the K live entries are computed directly per
-pick, the homotopy driver's gram_u1 design. f32 only (the kernels
-are). The api routes here for batched f32 TPU fast-mode solves;
+pick, the homotopy driver's gram_u1 design. f32 only. The api routes
+here by the homotopy driver's rule (homotopy_batch.route_batch_native);
 everything else keeps the vmapped core.
 """
 
@@ -35,12 +34,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 from jax import lax as _lax
 
 from ..ops import blas
-from ..ops.pallas import omp_insert as _oins
+from ..ops import slot as _slot
 from .omp import OmpReportArrays
 
 
@@ -62,7 +60,7 @@ def _embed_omp(s: _OBState, K2: int, n: int) -> _OBState:
     """Zero-pad a capacity-K1 state into capacity K2 (> K1) at a tier
     boundary (homotopy_batch._embed's design): exact, because padded
     slots carry the sentinel index and zero inverse rows/columns, which
-    the insert kernel and the slot reductions treat as absent."""
+    the insert and the slot reductions treat as absent."""
     K1 = s.b_act.shape[1]
     p = K2 - K1
     pad2 = lambda a: jnp.pad(a, ((0, 0), (0, p)))
@@ -76,7 +74,6 @@ def _embed_omp(s: _OBState, K2: int, n: int) -> _OBState:
 
 def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
                     tolerance, max_iterations: int, k_max: int,
-                    use_kernel: bool | None = None,
                     axis: str | None = None,
                     dense: bool = True,
                     overlap_blocks: int = 1,
@@ -92,7 +89,7 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
 
     ``ladder`` controls the capacity-tier ladder (None = auto, the
     homotopy driver's shared ``_plan_tiers`` rule): early picks run in
-    reduced-capacity loops — the (b,K,K) insert/LS kernel, the (b,K)
+    reduced-capacity loops — the (b,K,K) insert/LS update, the (b,K)
     slot gathers and the rss reduction are capacity-proportional and
     otherwise paid for provably-empty slots — with one exact zero-pad
     embed per boundary.
@@ -108,7 +105,7 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
     ``overlap_blocks`` > 1 (sharded only) splits each pick's
     q = AᵀA D into that many independent column-block products, each
     ending in its own ``psum``, so block j's all-reduce overlaps block
-    j+1's local MXU gemm (the homotopy driver's north-star overlap,
+    j+1's local gemm (the homotopy driver's north-star overlap,
     solvers/homotopy_batch.py). Exact: identical local-row dots and
     psum trees per element.
 
@@ -122,11 +119,9 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
     ``picks`` (static, ≥ 1): generalized-OMP rounds in the driver —
     each round selects the ``picks`` largest inactive correlations per
     lane (iterated masked argmax), runs that many guarded insert/LS
-    kernel calls
-    (each O(b·K²), cheap), and pays ONE q = AᵀA x̂ correlation pass.
-    The q pass is the driver's dominant per-pick cost (the fused bf16
-    kernel at ~92 % of the MXU roofline), so a k-sparse recovery costs
-    ~k/picks of it. Degenerate sub-inserts are skipped individually; a
+    updates (each O(b·K²), cheap), and pays ONE q = AᵀA x̂ correlation
+    pass. The q pass is the driver's dominant per-pick cost, so a
+    k-sparse recovery costs ~k/picks of it. Degenerate sub-inserts are skipped individually; a
     lane whose round commits nothing breaks with its solution intact.
     ``max_iterations`` stays the COLUMN budget (iter = support size).
     picks=1 is the existing trajectory, bit-for-bit. A capacity-tier
@@ -143,41 +138,31 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
     dtype = A.dtype
     if dtype != jnp.float32:
         raise ValueError(
-            "the batch-native OMP driver is float32 (its Pallas kernels "
-            f"are); got {dtype} — the api routes f64 to the vmapped core")
+            "the batch-native OMP driver is float32; "
+            f"got {dtype} — the api routes f64 to the vmapped core")
     if overlap_blocks > 1 and axis is None:
         raise ValueError(
             "overlap_blocks splits the sharded q psum into column-block "
             "collectives; without a shard axis there is no psum to "
             "overlap — pass axis=... or overlap_blocks=1")
     if b == 0:
-        # empty batch: the Pallas kernels' block shapes cannot be built
-        # for b=0 (and there is nothing to solve)
+        # empty batch: nothing to solve
         report = OmpReportArrays(iter=jnp.zeros((0,), jnp.uint32),
                                  solution_error=jnp.zeros((0,), dtype))
         out = (jnp.zeros((0, n), dtype) if dense else
                (jnp.zeros((0, K), dtype), jnp.full((0, K), n, jnp.int32)))
         return out, report
     tol = jnp.asarray(tolerance, dtype)
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    interp = not use_kernel
     bidx = jnp.arange(b)
     psum = (lambda v: _lax.psum(v, axis)) if axis is not None else (
         lambda v: v)
 
-    # c₀ at full 6-pass precision: it is the rhs of every LS re-solve
-    # (b_act gathers from it) AND the dominant noise term of the in-loop
-    # rss identity ‖y‖² − b_actᵀx̂ — at 3-pass its ~1e-5 absolute noise
-    # inflates the identity's floor to ~2·δ·Σ|x̂| ≈ 1e-4, which sits
-    # exactly at tol² for tol = 1e-2 and cost one spurious pick per lane
-    # on TPU (measured: every headline lane at 65 instead of 64 picks).
-    # C0 is one gemm per SOLVE, so the 6-pass cost is amortized to
-    # nothing; the certificate below stays at parity-grade "high"
-    # (honoring an ambient "highest").
-    cert_prec = ("highest"
-                 if blas.current_precision() == _lax.Precision.HIGHEST
-                 else "high")
+    # c₀ at HIGHEST precision: it is the rhs of every LS re-solve (b_act
+    # gathers from it) AND the dominant noise term of the in-loop rss
+    # identity ‖y‖² − b_actᵀx̂ — a reduced-precision c₀'s absolute noise
+    # δ inflates the identity's floor to ~2·δ·Σ|x̂|, which can sit at
+    # tol² and cost a spurious pick per lane. C0 is one gemm per SOLVE,
+    # so its cost is amortized to nothing.
     with blas.precision_scope("highest"):
         C0 = psum(blas.xgemm(Y, A))
     yty = psum(jnp.sum(Y * Y, axis=1))
@@ -188,17 +173,16 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
 
     # q product and gram-free insert column from the factories shared
     # with the homotopy driver (solvers/homotopy_batch.py — extracted so
-    # the copies cannot drift): one fused bf16 pass in the one-pass
-    # (DEFAULT) regime, two-gemm at high/highest, column-block psums
-    # when overlapped
+    # the copies cannot drift): bf16 gemms on the one-pass route,
+    # float32 gemms at high/highest, column-block psums when
+    # overlapped
     from .homotopy_batch import (_plan_tiers, gram_slot_gather,
                                  make_gram_u1, make_qprod, synced_while)
-    qprod, fused_q, A16 = make_qprod(A, psum, use_kernel, interp,
-                                     overlap_blocks, None, b, n,
+    qprod, bf16_q, A16 = make_qprod(A, psum, overlap_blocks, None, n,
                                      overlap_mode=overlap_mode,
                                      axis=axis, axis_size=axis_size)
     if G is None:
-        gram_u1 = make_gram_u1(A, A16, fused_q, psum, dtype)
+        gram_u1 = make_gram_u1(A, A16, bf16_q, psum, dtype)
 
     def make_tier(K: int, it_cap: int | None):
         """(init, body, lane_live) at capacity K. ``it_cap`` freezes
@@ -256,8 +240,8 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
                                    s.b_act.at[bidx, s.kk].set(bnew),
                                    s.b_act)
 
-                inv1, coef1, deg = _oins.omp_insert(
-                    s.inv, u1, s.kk, vtv, b_act1, live, interpret=interp)
+                inv1, coef1, deg = _slot.omp_insert(
+                    s.inv, u1, s.kk, vtv, b_act1, live)
                 stepped = live & ~deg
                 ncommit = stepped.astype(jnp.uint32)
                 it1 = jnp.where(stepped, s.it + 1, s.it)
@@ -272,11 +256,11 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
             else:
                 # gOMP round: the picks largest inactive scores per
                 # lane — selected by ITERATED masked argmax (identical
-                # to top_k's descending/leftmost order; lax.top_k
-                # lowers to a sort on TPU, measured ~1.5x slower per
-                # round at the headline shape) — inserted by sequential
-                # guarded kernel calls; each sub-insert's u1 gather
-                # sees the grown support. ONE q pass follows.
+                # to top_k's descending/leftmost order; chosen over
+                # lax.top_k on the previous accelerator, awaiting an
+                # A/B on the GPU, ROADMAP queue 1 #5) — inserted by
+                # sequential guarded updates; each sub-insert's u1
+                # gather sees the grown support. ONE q pass follows.
                 inv1, b_act1 = s.inv, s.b_act
                 ind1, mask1 = s.indices, s.mask
                 kk1, it1 = s.kk, s.it
@@ -305,9 +289,8 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
                     b_act_j = jnp.where(elig[:, None],
                                         b_act1.at[bidx, kk1].set(bnew),
                                         b_act1)
-                    inv1, coef_j, deg = _oins.omp_insert(
-                        inv1, u1, kk1, vtv, b_act_j, elig,
-                        interpret=interp)
+                    inv1, coef_j, deg = _slot.omp_insert(
+                        inv1, u1, kk1, vtv, b_act_j, elig)
                     ok = elig & ~deg
                     ind1 = jnp.where(ok[:, None],
                                      ind1.at[bidx, kk1].set(idx), ind1)
@@ -325,7 +308,7 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
             # is the post-loop high-precision certificate)
             rss1 = yty - jnp.sum(b_act1 * coef1, axis=1)
 
-            # correlation update from the new coefficients (one fused pass)
+            # correlation update from the new coefficients
             D = jnp.zeros((b, n), dtype).at[bidx[:, None], ind1].set(
                 jnp.where(stepped[:, None], coef1, 0), mode="drop")
             q = qprod(D)
@@ -342,11 +325,11 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
                 it=jnp.where(stepped, it1, s.it),
                 c=keep(c1, s.c),
                 mask=keep(mask1, s.mask),
-                # inv1 commits UNgated so the kernel's in-place aliasing
-                # holds (a where over s.inv kept the old buffer live and
-                # forced a (b,K,K) copy per pick): inert/degenerate lanes
-                # already get inv1 == inv bit-exact from the kernel gate,
-                # and a blown lane's inverse is never observable again (it
+                # inv1 commits ungated so the carry updates in place (a
+                # where over s.inv would keep the old buffer live and add
+                # a (b,K,K) copy per pick): inert/degenerate lanes already
+                # get inv1 == inv bit-exact from omp_insert's gate, and a
+                # blown lane's inverse is never observable again (it
                 # breaks; committed coef/indices stay reverted)
                 inv=inv1,
                 b_act=keep(b_act1, s.b_act),
@@ -364,11 +347,11 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
         return init, body, lane_live
 
     # capacity-tier ladder (homotopy's _plan_tiers, shared planner): the
-    # insert/LS kernel, the u1 slot gather and the (b,K) state are all
+    # insert/LS update, the u1 slot gather and the (b,K) state are all
     # capacity-proportional and otherwise paid for provably-empty slots
     # during the early picks; run them at reduced capacity and zero-pad
     # the state upward at each boundary (exact — padded slots hold the
-    # sentinel index and zero rows, which the kernel treats as absent)
+    # sentinel index and zero rows, which the insert treats as absent)
     tiers = _plan_tiers(k_max, max_iterations, ladder)
     state = None
     for t, Kt in enumerate(tiers):
@@ -380,10 +363,9 @@ def solve_omp_batch(A: jnp.ndarray, G: jnp.ndarray, Y: jnp.ndarray,
 
     X = jnp.zeros((b, n), dtype).at[bidx[:, None], final.indices].set(
         final.coef, mode="drop")
-    # final certificate: ‖y − Ax‖₂ per lane at parity-grade precision —
-    # the value a high-precision solve would report for this support
-    # (an ambient "highest" is honored, matching C0 above)
-    with blas.precision_scope(cert_prec):
+    # final certificate: ‖y − Ax‖₂ per lane at HIGHEST precision — the
+    # value a high-precision solve would report for this support
+    with blas.precision_scope(blas.PARITY):
         # rows stay local when sharded; the squared norm psums like
         # every other m-axis reduction (identity psum unsharded)
         R = Y - blas.xgemm(X, A, trans_b=True)

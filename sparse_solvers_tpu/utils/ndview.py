@@ -1,9 +1,9 @@
-"""Input normalization — the TPU-native analog of the reference's ``ndspan``.
+"""Input normalization — the device analog of the reference's ``ndspan``.
 
 The reference wraps raw buffers in non-owning strided views
 (reference: include/ss/ndspan.h:28-165) so that NumPy slices, transposes and
 column subsets work zero-copy end-to-end (reference:
-bindings/python/tests/test_binding.py:31-68). On TPU the equivalent is a
+bindings/python/tests/test_binding.py:31-68). Here the equivalent is a
 ``jax.Array``: any array-like (including non-contiguous NumPy views) is
 normalized here once, placed on device, and thereafter every kernel consumes
 the device-resident array. Shape/dtype validation mirrors the pybind11
@@ -102,7 +102,7 @@ def _resolve_dtype(arr: np.ndarray, dtype):
     if arr.dtype == np.float32:
         return np.float32
     if np.issubdtype(arr.dtype, np.floating) or np.issubdtype(arr.dtype, np.integer):
-        # Integer / other float inputs promote to float32 by default on TPU;
+        # Integer / other float inputs promote to float32 by default;
         # float64 only when explicitly provided (requires jax x64 mode).
         return np.float32
     raise TypeError(

@@ -1,9 +1,9 @@
 """Profiling & roofline utilities.
 
 The reference's only observability is Google-Benchmark counters
-(reference: src/solvers/homotopy_bench.cpp:53); the TPU-native equivalents
-are XLA profiler traces and roofline accounting against the chip's peak
-FLOP/s and HBM bandwidth (SURVEY.md §5 "Tracing / profiling").
+(reference: src/solvers/homotopy_bench.cpp:53); the device equivalents
+are XLA profiler traces and roofline accounting against the card's peak
+FLOP/s and device-memory bandwidth (SURVEY.md §5 "Tracing / profiling").
 """
 
 from __future__ import annotations
@@ -16,12 +16,12 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/sparse_solvers_trace"):
+def trace(logdir: str):
     """Capture a jax.profiler trace around a block.
 
     View with TensorBoard's profile plugin or xprof. Usage::
 
-        with profiling.trace("/tmp/tr"):
+        with profiling.trace("trace_dir"):
             solver.solve_batch(Y).block_until_ready()
     """
     jax.profiler.start_trace(logdir)
@@ -31,44 +31,59 @@ def trace(logdir: str = "/tmp/sparse_solvers_trace"):
         jax.profiler.stop_trace()
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class ChipSpec:
-    """Peak numbers for roofline accounting (per chip)."""
+    """Published peaks of one card, dense rates without sparsity."""
     name: str
     bf16_tflops: float
+    tf32_tflops: float
+    fp32_tflops: float
     hbm_gbps: float
 
-    @property
-    def f32_highest_tflops(self) -> float:
-        # HIGHEST f32 = 6 bf16 MXU passes
-        return self.bf16_tflops / 6
+    def peak_tflops(self, precision: str) -> float:
+        """Peak matmul rate for a float32 product at ``precision``
+        ("highest" → FP32, "high"/"default" → TF32), or for bf16
+        operands ("bf16")."""
+        return {"highest": self.fp32_tflops, "high": self.tf32_tflops,
+                "default": self.tf32_tflops,
+                "bf16": self.bf16_tflops}[precision]
 
-    @property
-    def f32_high_tflops(self) -> float:
-        return self.bf16_tflops / 3
 
-
-# Public chip specs (cloud.google.com/tpu/docs/system-architecture).
+# Keyed by ``jax.Device.device_kind``. Source: NVIDIA H100 data sheet,
+# SXM part, at its full 700 W power limit (a card set below it cannot
+# hold its top clock under a matrix-heavy load).
 CHIPS = {
-    "v4": ChipSpec("v4", bf16_tflops=275, hbm_gbps=1228),
-    "v5e": ChipSpec("v5e", bf16_tflops=197, hbm_gbps=819),
-    "v5p": ChipSpec("v5p", bf16_tflops=459, hbm_gbps=2765),
-    "v6e": ChipSpec("v6e", bf16_tflops=918, hbm_gbps=1640),
+    "NVIDIA H100 80GB HBM3": ChipSpec(
+        "H100 SXM", bf16_tflops=989, tf32_tflops=495, fp32_tflops=67,
+        hbm_gbps=3350),
 }
 
 
-def detect_chip() -> ChipSpec | None:
-    """Best-effort chip spec for the default device."""
+def card_label() -> str:
+    """Each card's name and power limit as ``nvidia-smi`` reports them
+    (one card per line). A card set below its maximum power runs slower
+    under load, so every recorded time carries this label."""
+    import subprocess
+
     try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        return None
-    for key, spec in CHIPS.items():
-        if key in kind.replace(" ", "").replace("lite", "e"):
-            return spec
-    if "v5" in kind and "lite" in kind:
-        return CHIPS["v5e"]
-    return None
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
+def detect_chip(device_kind: str | None = None) -> ChipSpec:
+    """Peak table row for ``device_kind`` (default: the first device's).
+    A device that is not in the table is an error: no peak is assumed."""
+    kind = device_kind or jax.devices()[0].device_kind
+    try:
+        return CHIPS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no peak table entry for device kind {kind!r}; known: "
+            f"{sorted(CHIPS)}") from None
 
 
 @dataclasses.dataclass
@@ -87,14 +102,13 @@ class Roofline:
     def gbps(self) -> float:
         return self.bytes / self.seconds / 1e9
 
-    def fraction_of_peak(self, precision: str = "high") -> float | None:
-        """max(compute, memory) fraction of the roofline bound."""
+    def fraction_of_peak(self, precision: str = "highest") -> float | None:
+        """max(compute, memory) fraction of the roofline bound; None
+        without a chip."""
         if self.chip is None:
             return None
-        peak_f = {"highest": self.chip.f32_highest_tflops,
-                  "high": self.chip.f32_high_tflops,
-                  "default": self.chip.bf16_tflops}[precision]
-        return max(self.tflops / peak_f, self.gbps / self.chip.hbm_gbps)
+        return max(self.tflops / self.chip.peak_tflops(precision),
+                   self.gbps / self.chip.hbm_gbps)
 
     def __str__(self):
         s = f"{self.seconds*1e3:.3f} ms, {self.tflops:.2f} TFLOP/s, " \
@@ -106,17 +120,18 @@ class Roofline:
 
 
 def measure(fn, *args, flops: float = 0, bytes: float = 0,
-            reps: int = 10) -> Roofline:
-    """Time a jitted callable and report roofline occupancy.
+            reps: int = 10, chip: ChipSpec | None = None) -> Roofline:
+    """Time a jitted callable; with ``chip`` (``detect_chip()`` on the
+    card) the result also reports roofline occupancy.
 
     ``flops``/``bytes`` are the caller's op accounting (e.g. 4·b·m·n and
-    m·n·itemsize for a fused correlation).
+    m·n·itemsize for a correlation product).
     """
     out = fn(*args)
     jax.block_until_ready(out)
-    t0 = time.time()
+    t0 = time.perf_counter()
     for _ in range(reps):
         out = fn(*args)
     jax.block_until_ready(out)
-    return Roofline(seconds=(time.time() - t0) / reps, flops=flops,
-                    bytes=bytes, chip=detect_chip())
+    return Roofline(seconds=(time.perf_counter() - t0) / reps, flops=flops,
+                    bytes=bytes, chip=chip)

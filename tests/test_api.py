@@ -218,7 +218,7 @@ def test_explain_reports_executed_path(monkeypatch):
     s = ss.Homotopy(A, engine="jax")
     plan = s.explain(batch=6, max_iterations=20)
     assert plan["engine"] == "jax" and plan["batch_native"]
-    assert "Pallas" in plan["formulation"]
+    assert "slot-space" in plan["formulation"]
     Y = (A @ rng.randn(80).astype(np.float32))[None, :].repeat(6, 0)
     s.solve_batch(Y, tolerance=0.01, max_iterations=20)
     (key,) = s._cache.keys()
@@ -236,7 +236,7 @@ def test_explain_reports_executed_path(monkeypatch):
 
 
 def test_irls_precision_knob():
-    """Irls accepts the MXU precision values (no certified variant —
+    """Irls accepts the matmul precision values (no certified variant —
     its solution_error is the reweighting eps, not a residual); results
     are identical across settings on the CPU backend."""
     import numpy as np
@@ -476,3 +476,118 @@ def test_lasso_at_batch_matches_single():
         if la[0] > lam > la[-1]:
             np.testing.assert_allclose(np.max(np.abs(c)), lam,
                                        rtol=1e-4, atol=1e-6)
+
+
+def test_readme_quickstart_runs_as_written():
+    """The README's quickstart must work verbatim."""
+    N = 10
+    np.random.seed(101)
+    A = np.random.randn(N, N).astype(np.float32) + np.eye(N,
+                                                         dtype=np.float32)
+    x_true = np.zeros(N, np.float32)
+    x_true[2] = 1.0
+    y = A @ x_true
+
+    solver = ss.Homotopy(A)
+    x, report = solver.solve(y, tolerance=0.1)
+    assert int(np.argmax(x)) == 2
+    assert float(np.mean(x == 0)) >= 0.8
+    assert report.iter >= 1
+
+
+def test_native_disabled_forced_engine_raises(monkeypatch):
+    """SS_NATIVE_DISABLE=1 + engine="native": explain() still reports
+    the native plan (a solve would attempt it — _route_native's probe
+    contract), but the solve itself raises RuntimeError instead of
+    silently degrading to the jax engine."""
+    monkeypatch.setenv("SS_NATIVE_DISABLE", "1")
+    A = np.identity(5, np.float32)
+    solver = ss.Homotopy(A, engine="native")
+    assert solver.explain()["engine"] == "native"
+    with pytest.raises(RuntimeError, match="native engine requested"):
+        solver.solve(np.eye(5, dtype=np.float32)[2])
+    # auto quietly degrades to jax on the same problem
+    x, rep = ss.Homotopy(A).solve(np.eye(5, dtype=np.float32)[2])
+    assert rep.solution_error == 0.0
+
+
+@pytest.mark.parametrize("env,gpu,sparse,want", [
+    (None, True, False, True),     # GPU auto: the slot-space driver
+    (None, True, True, False),     # the sparse rule is kept
+    (None, False, False, False),   # CPU auto: the vmapped core
+    ("1", False, True, True),      # forced anywhere structurally valid
+    ("0", True, False, False),     # forbidden
+])
+def test_route_batch_native_platform_rule(monkeypatch, env, gpu, sparse,
+                                          want):
+    """route_batch_native is the one platform decision every façade and
+    sharded route asks; SS_BATCH_NATIVE overrides it both ways."""
+    from sparse_solvers_tpu.solvers import homotopy_batch as HB
+
+    if env is None:
+        monkeypatch.delenv("SS_BATCH_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("SS_BATCH_NATIVE", env)
+    monkeypatch.setattr(HB, "on_gpu", lambda: gpu)
+    assert HB.route_batch_native(8, np.float32, sparse) is want
+    # structural: never for f64 or an empty batch, whatever the override
+    assert not HB.route_batch_native(8, np.float64, sparse)
+    assert not HB.route_batch_native(0, np.float32, sparse)
+
+
+def test_gpu_route_compiles_plain_forms(monkeypatch):
+    """On the GPU route (platform patched here) the façade plans the
+    driver with the one-pass bf16 q product, and the plan it reports is
+    the one that runs: plain XLA forms, compiled — the package has no
+    interpreted kernel to fall back to."""
+    import pathlib
+
+    from sparse_solvers_tpu.solvers import homotopy_batch as HB
+
+    monkeypatch.delenv("SS_BATCH_NATIVE", raising=False)
+    monkeypatch.setattr(HB, "on_gpu", lambda: True)
+    rng = np.random.RandomState(4)
+    m, n, k, B = 48, 256, 4, 6     # B·k_max ≥ 2m: outside the sparse rule
+    A = rng.randn(m, n).astype(np.float32)
+    A /= np.linalg.norm(A, axis=0)
+    Xt = np.zeros((B, n), np.float32)
+    for i in range(B):
+        Xt[i, rng.choice(n, k, replace=False)] = rng.uniform(0.5, 1, k)
+    Y = (Xt @ A.T).astype(np.float32)
+    s = ss.Homotopy(A, engine="jax")
+    plan = s.explain(batch=B, max_iterations=20)
+    assert plan["batch_native"] and plan["bf16_q"]
+    X, rep = s.solve_batch(Y, tolerance=1e-2, max_iterations=20)
+    (key,) = [k_ for k_ in s._cache if k_[4]]   # the driver was built
+    txt = s._cache[key].lower(s._A, s._G, jnp.asarray(Y),
+                              1e-2).compile().as_text()
+    assert "slot_gamma_scan" in txt and "slot_q_product" in txt
+    assert (np.asarray(rep.solution_error) <= 1e-2).all()
+    for i in range(B):
+        assert (set(np.flatnonzero(np.abs(np.asarray(X[i])) > 0.1))
+                == set(np.flatnonzero(Xt[i])))
+    pkg = pathlib.Path(ss.__file__).parent
+    for path in pkg.rglob("*.py"):
+        text = path.read_text()
+        assert "interpret=" not in text and "pallas" not in text, path
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set the helper sets nothing in
+    code; without it the cache goes to the fixed <checkout>/.jax_cache."""
+    import os
+
+    import jax
+
+    from sparse_solvers_tpu.utils import config
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert config.use_compile_cache() == str(tmp_path)
+    assert calls == []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+    path = config.use_compile_cache()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ss.__file__)))
+    assert path == os.path.join(root, ".jax_cache")
+    assert ("jax_compilation_cache_dir", path) in calls

@@ -1,4 +1,4 @@
-"""Batched (vmap) solve tests — the TPU throughput path
+"""Batched (vmap) solve tests — the vmapped throughput path
 (BASELINE.json config 4: many signals sharing one A). Each vmap lane carries
 its own active-set state and converges independently; results must match the
 sequential per-signal solves exactly.

@@ -2,7 +2,7 @@
 
 On well-conditioned problems both formulations must agree iteration-for-
 iteration (they are the same updates in a different batching layout).
-The driver runs the active-set kernel in interpret mode here (CPU).
+The driver's per-iteration primitives are plain XLA (ops/slot.py).
 """
 
 from functools import partial
@@ -30,7 +30,7 @@ def test_matches_vmap_core():
     Xv, Rv = s.solve_batch(Y, tolerance=0.01, max_iterations=40)
 
     f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=40,
-                        k_max=41, use_kernel=False))
+                        k_max=41))
     with blas.precision_scope("high"):
         Xb, Rb = f(jnp.asarray(A), s._G, jnp.asarray(Y), 0.01)
 
@@ -56,7 +56,7 @@ def test_lane_freeze_variable_iterations():
     s = ss.Homotopy(A, engine="jax")
     G = s._G
     f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=60,
-                        k_max=61, use_kernel=False))
+                        k_max=61))
     with blas.precision_scope("high"):
         Xb, Rb = f(jnp.asarray(A), G, jnp.asarray(Y), 0.01)
     iters = np.asarray(Rb.iter)
@@ -70,7 +70,7 @@ def test_removals_stability_and_parity():
     """Signed coefficients + noise force remove events and near-tied γ
     candidates. On these near-degenerate paths the batch driver and the
     vmapped core may fork at an ulp-level tie (the core itself forks
-    between MXU precision levels there), so the contract is: no NaN/Inf
+    between matmul precision levels there), so the contract is: no NaN/Inf
     ever (the reference's unguarded degenerate inserts must not be *more*
     reachable than in the core), iteration parity on the majority of
     lanes, identical solutions where iterations agree, and oracle-quality
@@ -87,7 +87,7 @@ def test_removals_stability_and_parity():
     s = ss.Homotopy(A, engine="jax")
     Xv, Rv = s.solve_batch(Y, tolerance=0.05, max_iterations=60)
     f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=60,
-                        k_max=61, use_kernel=False))
+                        k_max=61))
     with blas.precision_scope("high"):
         Xb, Rb = f(jnp.asarray(A), s._G, jnp.asarray(Y), 0.05)
     Xb, Xv = np.asarray(Xb), np.asarray(Xv)
@@ -118,7 +118,7 @@ def test_no_nans_on_thrashy_ensemble():
     Y = (Xt @ A.T + 0.01 * rng.randn(B, m)).astype(np.float32)
     s = ss.Homotopy(A, engine="jax")
     f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=120,
-                        k_max=121, use_kernel=False))
+                        k_max=121))
     with blas.precision_scope("high"):
         Xb, Rb = f(jnp.asarray(A), s._G, jnp.asarray(Y), 0.05)
     assert np.isfinite(np.asarray(Xb)).all()
@@ -138,8 +138,7 @@ def test_remove_to_empty_breaks_with_solution_intact():
     G = np.eye(n, dtype=np.float32)
     Y = np.zeros((1, m), np.float32)
     init, body, lane_live = HB.make_stepper(
-        jnp.asarray(A), jnp.asarray(G), jnp.asarray(Y), 0.01, 10, K,
-        use_kernel=False)
+        jnp.asarray(A), jnp.asarray(G), jnp.asarray(Y), 0.01, 10, K)
     # one active member (index 3) whose removal candidate -x/d = 0.45 is
     # below every insertion candidate (= 1.0 here): the scan picks the
     # removal, which would empty the support
@@ -170,7 +169,7 @@ def test_capacity_ladder_matches_single_tier():
     makes identical path decisions to the single full-capacity loop —
     equal iteration counts lane-for-lane — and agrees on the solution to
     the driver's established fp bar (the tiers' slot-axis reductions may
-    associate differently at the ulp level in interpret mode, the same
+    associate differently at the ulp level, the same
     class of fork as driver-vs-vmapped-core)."""
     rng = np.random.RandomState(3)
     m, n, k, B = 128, 256, 24, 8
@@ -192,7 +191,7 @@ def test_capacity_ladder_matches_single_tier():
     out = {}
     for ladder in (False, True):
         f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=64,
-                            k_max=40, use_kernel=False, ladder=ladder))
+                            k_max=40, ladder=ladder))
         with blas.precision_scope("high"):
             out[ladder] = f(jnp.asarray(A), G, jnp.asarray(Y), 0.01)
 
@@ -234,7 +233,7 @@ def test_capacity_ladder_overflow_lane_breaks_cleanly():
 
     for ladder in (False, True):
         f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=60,
-                            k_max=16, use_kernel=False, ladder=ladder))
+                            k_max=16, ladder=ladder))
         with blas.precision_scope("high"):
             Xb, Rb = f(jnp.asarray(A), G, jnp.asarray(Y), 0.01)
         iters = np.asarray(Rb.iter)
@@ -264,7 +263,7 @@ def test_capacity_ladder_explicit_tiers():
     out = {}
     for lad in (False, (16, 24, 40)):
         f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=64,
-                            k_max=40, use_kernel=False, ladder=lad))
+                            k_max=40, ladder=lad))
         with blas.precision_scope("high"):
             out[lad] = f(jnp.asarray(A), G, jnp.asarray(Y), 0.01)
     X0, R0 = out[False]
@@ -274,8 +273,7 @@ def test_capacity_ladder_explicit_tiers():
 
 
 def test_empty_batch_routes_and_returns_empty():
-    """b=0 must not reach the Pallas kernels (block shapes cannot be
-    built for an empty batch): routing excludes it and the driver
+    """b=0 has nothing to solve: routing excludes it and the driver
     early-returns empty results (review regression)."""
     import os
 
@@ -295,8 +293,7 @@ def test_empty_batch_routes_and_returns_empty():
     # and the driver entry point itself early-returns
     G = jnp.asarray(A.T @ A)
     Xd, repd = HB.solve_homotopy_batch(
-        jnp.asarray(A), G, jnp.zeros((0, 128), jnp.float32), 0.1, 16, 17,
-        use_kernel=False)
+        jnp.asarray(A), G, jnp.zeros((0, 128), jnp.float32), 0.1, 16, 17)
     assert Xd.shape == (0, 256) and repd.iter.shape == (0,)
 
 
@@ -318,10 +315,8 @@ def test_gram_free_matches_gram_driver():
     Y = (X0 @ A.T).astype(np.float32)
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
-    Xg, rg = HB.solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61,
-                                     use_kernel=False)
-    Xf, rf = HB.solve_homotopy_batch(Aj, None, jnp.asarray(Y), 1e-3, 60, 61,
-                                     use_kernel=False)
+    Xg, rg = HB.solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61)
+    Xf, rf = HB.solve_homotopy_batch(Aj, None, jnp.asarray(Y), 1e-3, 60, 61)
     np.testing.assert_array_equal(np.asarray(rg.iter), np.asarray(rf.iter))
     np.testing.assert_allclose(np.asarray(Xg), np.asarray(Xf), atol=1e-5)
     assert float(np.max(np.abs(np.asarray(Xf) @ A.T - Y))) <= 1e-3
@@ -373,7 +368,7 @@ def test_no_nans_on_thrashy_ensemble_gram_free():
         Xt[i, rng.choice(n, k, replace=False)] = rng.randn(k)
     Y = (Xt @ A.T + 0.01 * rng.randn(B, m)).astype(np.float32)
     f = jax.jit(partial(HB.solve_homotopy_batch, max_iterations=120,
-                        k_max=121, use_kernel=False))
+                        k_max=121))
     with blas.precision_scope("high"):
         Xb, Rb = f(jnp.asarray(A), None, jnp.asarray(Y), 0.05)
     assert np.isfinite(np.asarray(Xb)).all()
@@ -403,10 +398,9 @@ def test_dense_false_matches_dense_scatter():
     A, X0, Y = _sparse_batch(rng, 64, 128, 5, 8)
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
-    Xd, rd = HB.solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61,
-                                     use_kernel=False)
+    Xd, rd = HB.solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61)
     (v, ix), rc = HB.solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60,
-                                          61, use_kernel=False, dense=False)
+                                          61, dense=False)
     np.testing.assert_array_equal(np.asarray(rd.iter), np.asarray(rc.iter))
     np.testing.assert_array_equal(
         np.asarray(Xd), np.asarray(HB.densify_batch(v, ix, 128)))
@@ -432,7 +426,7 @@ def test_api_solve_batch_dense_false_all_engines(monkeypatch):
     np.testing.assert_array_equal(np.asarray(rd.iter), np.asarray(rc.iter))
     np.testing.assert_array_equal(np.asarray(Xd), ss.densify_batch(v, ix, 128))
 
-    # batch-native driver (forced; interpret-mode kernels)
+    # batch-native driver (forced)
     monkeypatch.setenv("SS_BATCH_NATIVE", "1")
     s2 = ss.Homotopy(A, engine="jax")
     assert s2.explain(batch=6, max_iterations=50)["batch_native"]
@@ -467,11 +461,10 @@ def test_record_path_matches_vmapped_core_histories():
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
     Xp, rp, (hv, hi, hl) = HB.solve_homotopy_batch(
-        Aj, G, jnp.asarray(Y), 1e-3, 60, 61, use_kernel=False,
+        Aj, G, jnp.asarray(Y), 1e-3, 60, 61,
         record_path=True)
     # the record_path run is the same path: dense output matches
-    Xd, rd = HB.solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61,
-                                     use_kernel=False)
+    Xd, rd = HB.solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61)
     np.testing.assert_array_equal(np.asarray(rd.iter), np.asarray(rp.iter))
     np.testing.assert_array_equal(np.asarray(Xd), np.asarray(Xp))
 
@@ -507,10 +500,10 @@ def test_record_path_capacity_ladder_histories_exact():
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
     _, r1, (v1, i1, l1) = HB.solve_homotopy_batch(
-        Aj, G, jnp.asarray(Y), 1e-3, 40, 24, use_kernel=False,
+        Aj, G, jnp.asarray(Y), 1e-3, 40, 24,
         record_path=True, ladder=[8, 16, 24])
     _, r0, (v0, i0, l0) = HB.solve_homotopy_batch(
-        Aj, G, jnp.asarray(Y), 1e-3, 40, 24, use_kernel=False,
+        Aj, G, jnp.asarray(Y), 1e-3, 40, 24,
         record_path=True, ladder=False)
     np.testing.assert_array_equal(np.asarray(r1.iter), np.asarray(r0.iter))
     for lane in range(Y.shape[0]):
@@ -554,8 +547,8 @@ def test_empty_batch_compact_and_record_path_shapes():
     G = blas.xgemm(A, A, trans_a=True)
     Y = jnp.zeros((0, 8), jnp.float32)
     (v, ix), rep = HB.solve_homotopy_batch(A, G, Y, 1e-3, 10, 11,
-                                           use_kernel=False, dense=False)
+                                           dense=False)
     assert v.shape == (0, 11) and ix.shape == (0, 11)
     out, rep, (hv, hi, hl) = HB.solve_homotopy_batch(
-        A, G, Y, 1e-3, 10, 11, use_kernel=False, record_path=True)
+        A, G, Y, 1e-3, 10, 11, record_path=True)
     assert hv.shape == (0, 11, 11) and hl.shape == (0, 11)

@@ -1,14 +1,14 @@
 """Certified mixed-precision mode (precision="certified").
 
-The path runs at one-pass MXU precision; the final correlation
+The path runs at one-pass precision; the final correlation
 ‖Aᵀ(y−Ax)‖∞ — the solver's own convergence criterion (reference:
-src/solvers/homotopy-cpu.cpp:270) — is recomputed at parity-grade "high"
-precision and reported as solution_error; solve/solve_batch re-solve any
-lane whose certificate misses the tolerance at precision="high". On the
-CPU backend every precision setting computes identical f32 arithmetic, so
-these tests pin the *machinery* (certificate values, report plumbing, the
-re-solve branch and merge) — the speed claim is pinned on hardware by
-bench.py / benchmarks/results/headline_precision_v5e.jsonl.
+src/solvers/homotopy-cpu.cpp:270) — is recomputed at parity-grade
+precision (blas.PARITY) and reported as solution_error; solve/solve_batch
+re-solve any lane whose certificate misses the tolerance at that
+precision. On the CPU backend every precision setting computes identical
+f32 arithmetic, so these tests pin the *machinery* (certificate values,
+report plumbing, the re-solve branch and merge) — the certificate is
+checked at the headline shape on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -45,7 +45,7 @@ def test_certificate_is_high_precision_correlation():
 
 def test_certified_matches_high_when_certificates_hold():
     """On CPU the one-pass path is bit-identical to "high" (precision
-    flags only matter on MXU), so certified results must equal the
+    flags only matter on the GPU), so certified results must equal the
     high-precision results lane-for-lane."""
     A, Y = make_problem(256, 512, 8, 6)
     cert = ss.Homotopy(A, precision="certified")
@@ -165,8 +165,8 @@ def test_certified_validation():
 
 def test_certified_over_batch_native_driver():
     """certified precision composed with the slot-space batch driver
-    (the TPU headline path, forced here via SS_BATCH_NATIVE=1 interpret
-    mode): certificates hold, solutions recover, capacity ladder active."""
+    (the GPU headline path, forced here via SS_BATCH_NATIVE=1):
+    certificates hold, solutions recover, capacity ladder active."""
     import os
 
     A, Y = make_problem(256, 512, 8, 6)

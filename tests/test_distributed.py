@@ -20,8 +20,7 @@ from sparse_solvers_tpu.parallel import sharding as sh
 
 
 def test_initialize_noop_on_single_host(monkeypatch):
-    for v in dist._CLUSTER_ENV_VARS + ("JAX_NUM_PROCESSES",
-                                       "TPU_WORKER_HOSTNAMES"):
+    for v in dist._CLUSTER_ENV_VARS + ("JAX_NUM_PROCESSES",):
         monkeypatch.delenv(v, raising=False)
     assert dist.initialize() is False
     assert dist.is_initialized() is False  # nothing was started

@@ -359,8 +359,8 @@ def test_fuzz_engine_parity():
 
 
 def test_batch_driver_matches_vmapped_core(monkeypatch):
-    """The slot-space batch driver (solvers/omp_batch.py — fused q +
-    in-place insert/LS kernels, interpret mode off-TPU) visits the same
+    """The slot-space batch driver (solvers/omp_batch.py — q product +
+    in-place insert/LS) visits the same
     picks and solutions as the vmapped core, and the api routes to it
     under SS_BATCH_NATIVE=1."""
     monkeypatch.setenv("SS_BATCH_NATIVE", "1")
@@ -591,18 +591,18 @@ def test_batch_driver_capacity_ladder_exact():
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
     X1, r1 = solve_omp_batch(Aj, G, Y, 1e-2, 30, 30,
-                             use_kernel=False, ladder=False)
+                             ladder=False)
     X2, r2 = solve_omp_batch(Aj, G, Y, 1e-2, 30, 30,
-                             use_kernel=False, ladder=True)
+                             ladder=True)
     np.testing.assert_array_equal(np.asarray(r1.iter), np.asarray(r2.iter))
     np.testing.assert_array_equal(np.asarray(X1), np.asarray(X2))
     np.testing.assert_array_equal(np.asarray(r1.solution_error),
                                   np.asarray(r2.solution_error))
     # gram-free ladder too
     Xf1, rf1 = solve_omp_batch(Aj, None, Y, 1e-2, 30, 30,
-                               use_kernel=False, ladder=False)
+                               ladder=False)
     Xf2, rf2 = solve_omp_batch(Aj, None, Y, 1e-2, 30, 30,
-                               use_kernel=False, ladder=True)
+                               ladder=True)
     np.testing.assert_array_equal(np.asarray(rf1.iter),
                                   np.asarray(rf2.iter))
     np.testing.assert_array_equal(np.asarray(Xf1), np.asarray(Xf2))
@@ -874,5 +874,5 @@ def test_gomp_zero_correlation_round_matches_oracle():
     from sparse_solvers_tpu.solvers.omp_batch import solve_omp_batch
     import jax.numpy as jnp
     Xd, rd = solve_omp_batch(jnp.asarray(A), None, jnp.asarray(y[None]),
-                             1e-6, 20, 8, use_kernel=False, picks=4)
+                             1e-6, 20, 8, picks=4)
     assert int(np.asarray(rd.iter)[0]) == 3

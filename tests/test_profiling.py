@@ -20,12 +20,56 @@ def test_measure_reports_consistent_rates():
 
 
 def test_chip_specs_precisions():
-    v5e = profiling.CHIPS["v5e"]
-    assert v5e.f32_highest_tflops * 6 == v5e.bf16_tflops
-    assert v5e.f32_high_tflops * 3 == v5e.bf16_tflops
-    r = profiling.Roofline(seconds=1e-3, flops=1e9, bytes=1e6, chip=v5e)
+    h100 = profiling.CHIPS["NVIDIA H100 80GB HBM3"]
+    assert h100.peak_tflops("highest") == h100.fp32_tflops == 67
+    assert h100.peak_tflops("high") == h100.peak_tflops("default") == 495
+    assert h100.peak_tflops("bf16") == 989
+    r = profiling.Roofline(seconds=1e-3, flops=1e9, bytes=1e6, chip=h100)
     frac = r.fraction_of_peak("highest")
     assert frac is not None and frac > 0
+    np.testing.assert_allclose(frac, max(1.0 / 67, 1.0 / 3350))
+
+
+def test_detect_chip_finds_h100():
+    spec = profiling.detect_chip("NVIDIA H100 80GB HBM3")
+    assert spec.name == "H100 SXM" and spec.hbm_gbps == 3350
+
+
+def test_detect_chip_raises_on_unknown(monkeypatch):
+    """No peak is assumed for a device the table does not know — the
+    CPU test device, an H100 PCIe, or any other card."""
+    import pytest
+
+    class _Dev:
+        device_kind = "NVIDIA H100 PCIe"
+
+    monkeypatch.setattr(profiling.jax, "devices", lambda: [_Dev()])
+    with pytest.raises(ValueError, match="H100 PCIe"):
+        profiling.detect_chip()
+    with pytest.raises(ValueError):
+        profiling.detect_chip("cpu")
+
+
+def test_card_label(monkeypatch):
+    """The nvidia-smi query's output as is, and a label (never an
+    exception) where the tool cannot run."""
+    import subprocess
+
+    class _Done:
+        stdout = "NVIDIA H100 80GB HBM3, 700.00 W\n"
+
+    calls = []
+    monkeypatch.setattr(subprocess, "run",
+                        lambda cmd, **kw: calls.append(cmd) or _Done())
+    assert profiling.card_label() == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert calls == [["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]]
+
+    def _missing(cmd, **kw):
+        raise FileNotFoundError("nvidia-smi")
+
+    monkeypatch.setattr(subprocess, "run", _missing)
+    assert profiling.card_label().startswith("nvidia-smi unavailable")
 
 
 def test_trace_context_manager(tmp_path):

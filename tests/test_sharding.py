@@ -385,8 +385,8 @@ def test_homotopy_sharded_certified_under_jit_raises(mesh):
 
 
 def test_homotopy_sharded_batch_native_matches_driver(mesh):
-    """The slot-space Pallas driver inside shard_map (row-sharded q
-    psums, replicated kernels) matches the single-device batch driver —
+    """The slot-space driver inside shard_map (row-sharded q
+    psums, replicated slot state) matches the single-device batch driver —
     gram and gram-free — on iteration counts and solutions (round-2
     judge item 1: the throughput driver now runs sharded)."""
     import os
@@ -408,8 +408,7 @@ def test_homotopy_sharded_batch_native_matches_driver(mesh):
     from sparse_solvers_tpu.ops import blas
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
-    Xs, rs = solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61,
-                                  use_kernel=False)
+    Xs, rs = solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61)
     np.testing.assert_array_equal(np.asarray(rg.iter), np.asarray(rs.iter))
     np.testing.assert_array_equal(np.asarray(rf.iter), np.asarray(rs.iter))
     np.testing.assert_allclose(np.asarray(Xg), np.asarray(Xs), atol=1e-5)
@@ -462,7 +461,7 @@ def test_homotopy_sharded_batch_native_certified(mesh):
 
 def test_irls_sharded_gemm_newton_matches_trsm(mesh):
     """irls_sharded(newton="gemm") — the replicated R inverted once per
-    call, applied as one MXU gemm per iteration — matches the trsm form
+    call, applied as one gemm per iteration — matches the trsm form
     at the reference tolerance with identical iteration counts."""
     rng = np.random.RandomState(17)
     A, Y = _problem(rng, 48, 24, 8, 3)
@@ -497,9 +496,10 @@ def test_homotopy_sharded_overlap_split_keeps_vmapped_core(mesh):
     finally:
         del os.environ["SS_BATCH_NATIVE"]
     # ...but overlap_split keeps the vmapped core: the compiled program
-    # contains no slot-space driver kernels (XLA may merge the split
-    # psums at this width, so the kernel names are the reliable marker)
-    assert "find_max_gamma_fused" not in txt
+    # contains none of the slot-space driver's named scopes (XLA may
+    # merge the split psums at this width, so the scope names are the
+    # reliable marker)
+    assert "slot_gamma_scan" not in txt
     assert _collectives_in_loop_bodies(txt) >= 1
     with pytest.raises(ValueError):
         sh.homotopy_sharded(mesh, Ad, Yd, 1e-2, 8, batch_native=True,
@@ -573,11 +573,8 @@ def test_homotopy_sharded_overlap_blocks_hlo_contract(mesh):
     scheduler overlaps (each block's all-reduce has no dependence on the
     later blocks' gemms). This XLA build then COMBINES them into one
     variadic all-reduce whose operands remain the per-block partial
-    products, executed by the TPU backend as a multistep pipelined ring
-    (docs/design.md §9 records the AOT v5e:2x4 evidence; async
-    all-reduce-start/done is not exposed by this compiler version, so
-    the StableHLO block structure + variadic operand count are the
-    pinnable contract)."""
+    products (docs/design.md §9). The StableHLO block structure and the
+    variadic operand count are the pinnable contract."""
     import re
     rng = np.random.RandomState(0)
     A, Y = _problem(rng, 32, 512, 4, 2)
@@ -620,7 +617,7 @@ def test_homotopy_sharded_overlap_blocks_validation(mesh):
     with pytest.raises(ValueError, match="overlap_blocks"):
         solve_homotopy_batch(jnp.asarray(A, jnp.float32),
                              None, jnp.asarray(Y, jnp.float32),
-                             1e-2, 8, 9, use_kernel=False,
+                             1e-2, 8, 9,
                              overlap_blocks=2)  # unsharded: no psum
 
 
@@ -755,8 +752,7 @@ def test_omp_sharded_batch_native_matches_driver(mesh):
     from sparse_solvers_tpu.ops import blas
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
-    Xs, rs = solve_omp_batch(Aj, G, jnp.asarray(Y), 1e-2, 30, 30,
-                             use_kernel=False)
+    Xs, rs = solve_omp_batch(Aj, G, jnp.asarray(Y), 1e-2, 30, 30)
     np.testing.assert_array_equal(np.asarray(rb.iter), np.asarray(rs.iter))
     np.testing.assert_allclose(np.asarray(Xb), np.asarray(Xs), atol=1e-4)
     # the reported error is the psum'd high-precision certificate
@@ -854,7 +850,7 @@ def test_omp_sharded_batch_native_validation(mesh):
     G = blas.xgemm(Aj, Aj, trans_a=True)
     with pytest.raises(ValueError, match="overlap_blocks"):
         solve_omp_batch(Aj, G, jnp.asarray(Y), 1e-2, 8, 8,
-                        use_kernel=False, overlap_blocks=2)
+                        overlap_blocks=2)
 
 
 def test_omp_sharded_certified(mesh):
@@ -939,8 +935,7 @@ def test_homotopy_sharded_ppermute_matches_driver(mesh):
     from sparse_solvers_tpu.ops import blas
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
-    Xd, rd = solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61,
-                                  use_kernel=False)
+    Xd, rd = solve_homotopy_batch(Aj, G, jnp.asarray(Y), 1e-3, 60, 61)
     np.testing.assert_array_equal(np.asarray(rp.iter), np.asarray(rd.iter))
     np.testing.assert_allclose(np.asarray(Xp), np.asarray(Xd), atol=1e-5)
     got = {frozenset(np.where(np.abs(r) > 0.05)[0]) for r in np.asarray(Xp)}
@@ -1159,6 +1154,6 @@ def test_omp_sharded_gomp_driver(mesh):
     Aj = jnp.asarray(A)
     G = blas.xgemm(Aj, Aj, trans_a=True)
     Xd, rd = solve_omp_batch(Aj, G, jnp.asarray(Y), 1e-2, 30, 30,
-                             use_kernel=False, picks=3)
+                             picks=3)
     np.testing.assert_array_equal(np.asarray(rs.iter), np.asarray(rd.iter))
     np.testing.assert_allclose(np.asarray(Xs), np.asarray(Xd), atol=1e-5)

@@ -300,11 +300,11 @@ def test_irls_spd_boundary_parity_fast_vs_exact():
 
 @pytest.mark.parametrize("precision", ["default", "high", "highest"])
 def test_homotopy_precision_levels_recover(precision):
-    """Every MXU precision level must recover the planted support on the
+    """Every matmul precision level must recover the planted support on the
     standard compressive ensemble (the headline workload in miniature).
 
-    precision="default" (one bf16 pass) is the documented opt-in
-    throughput mode (~1.4x on TPU, BASELINE.md); the contract is not
+    precision="default" (TF32 on the GPU) is the documented opt-in
+    throughput mode; the contract is not
     trajectory parity with "high" — fp schedules legitimately fork — but
     oracle-quality recovery: exact support, faithful reconstruction.
     """

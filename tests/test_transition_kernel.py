@@ -1,4 +1,4 @@
-"""Unit tests for the fused transition kernel (ops/pallas/transition.py)
+"""Unit tests for the slot-space transition (ops/slot.py transition)
 against the linalg/online_inverse reference ops — insert, remove (both
 pos≠last and the pos==last drop, which needs no slot move), frozen lanes,
 and the slot-space recurrences.
@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sparse_solvers_tpu.ops.pallas import transition as T
+from sparse_solvers_tpu.ops import slot as T
 import sparse_solvers_tpu.linalg.online_inverse as oinv
 
 
@@ -77,7 +77,7 @@ def test_transition_matches_online_inverse(remove_last):
         jnp.asarray(ca), jnp.asarray(ind), jnp.asarray(u1),
         jnp.asarray(idx), jnp.asarray(kk), jnp.asarray(gamma),
         jnp.asarray(vtv), jnp.asarray(cnew), jnp.asarray(live),
-        jnp.asarray(doins), jnp.asarray(dorm), tol, n, interpret=True))
+        jnp.asarray(doins), jnp.asarray(dorm), tol, n))
 
     for l in range(b):
         st = oinv.InverseState(inv=jnp.asarray(inv[l]),
@@ -126,10 +126,9 @@ def test_transition_matches_online_inverse(remove_last):
 
 
 def test_scan_kernel_matches_core_formula():
-    """find_max_gamma_fused vs the vmapped core candidate formula,
+    """slot.find_max_gamma vs the vmapped core candidate formula,
     including leftmost tie-breaks and the all-invalid fallback
     (reference: homotopy-cpu.cpp:100-164)."""
-    from sparse_solvers_tpu.ops.pallas import scan as SC
     from sparse_solvers_tpu.solvers.homotopy import _find_max_gamma
 
     rng = np.random.RandomState(11)
@@ -155,10 +154,10 @@ def test_scan_kernel_matches_core_formula():
     c[b - 1] = 0
     c_inf[b - 1] = 0
 
-    g, i = SC.find_max_gamma_fused(
+    g, i = T.find_max_gamma(
         jnp.asarray(q), jnp.asarray(c), jnp.asarray(mask),
         jnp.asarray(c_inf), jnp.asarray(xa), jnp.asarray(da),
-        jnp.asarray(ind), interpret=True)
+        jnp.asarray(ind))
 
     for l in range(b):
         x_n = np.zeros(n, np.float32)
@@ -178,7 +177,7 @@ def test_degenerate_insert_flags_and_freezes_lane():
     """Inserting a column already in span(A_Γ) makes the Schur
     complement den = vᵀv − u1ᵀBu1 rounding noise; the reference divides
     by it unguarded (online_inverse.h:219) and degenerates to inf. The
-    kernel must flag the lane (deg) and leave its state untouched so the
+    transition must flag the lane (deg) and leave its state untouched so the
     driver can break it cleanly."""
     K, n = 4, 8
     # two orthonormal active columns -> gk = I2 (padded), inv = I2
@@ -208,7 +207,7 @@ def test_degenerate_insert_flags_and_freezes_lane():
     inv2, gk2, x2, d2, ca2, ind2, deg = map(np.asarray, T.transition(
         *map(jnp.asarray, (inv, gk, xa, da, ca, ind, u1, idx, kk, gamma,
                            vtv, cnew, live, doins, dorm)),
-        np.float32(0.01), n, interpret=True))
+        np.float32(0.01), n))
 
     assert bool(deg[0]) and not bool(deg[1])
     # degenerate lane: state untouched (no gamma step, no insert)
